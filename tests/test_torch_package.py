@@ -1,0 +1,174 @@
+"""tpuvr_torch as a package: it stands apart from JAX, imports without a
+CUDA toolkit, never falls back to the CPU quietly, and refuses gradients
+its kernels cannot give."""
+
+import ast
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tpuvr_torch import configs
+from tpuvr_torch.device import (
+    check_no_cuda_grad,
+    cuda_grad_requested,
+    resolve_device,
+)
+from tpuvr_torch.io.synth import smoke_sphere
+from tpuvr_torch.kernels import _build
+from tpuvr_torch.ops import lighting, render, vjp
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "tpuvr_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_tpuvr_imports(path):
+    assert path.exists()
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "tpuvr", "configs"), (
+            f"{path.name} imports {mod}")
+
+
+def test_import_needs_no_toolkit_and_builds_nothing():
+    """Importing every module pulls in neither triton nor jax and
+    compiles nothing."""
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in PORT_FILES if p.parent != ROOT]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "from tpuvr_torch.kernels import _build\n"
+        "assert not _build._libs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('triton', 'jax', 'tpuvr')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=str(ROOT))
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
+                   env=env, timeout=120)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_refuse_to_fall_back(no_card):
+    grid = torch.zeros(4, 4, 4, 4)
+    cam = configs.front_ortho(4, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render.render_view(grid, cam)
+    with pytest.raises(RuntimeError):
+        render.prepare_grid(grid)
+    prep = render.prepare_grid(grid, device="cpu")
+    with pytest.raises(RuntimeError):
+        render.render_prepared(prep, cam)
+    with pytest.raises(RuntimeError):
+        lighting.light_volume(grid[..., 0])
+    with pytest.raises(RuntimeError):
+        smoke_sphere(4)
+
+
+def test_resolve_device(no_card):
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(ValueError, match="unsupported"):
+        resolve_device("meta")
+
+
+def _fake_cuda_tensor(requires_grad):
+    return types.SimpleNamespace(is_cuda=True, requires_grad=requires_grad)
+
+
+def test_gradient_guard_predicate():
+    assert cuda_grad_requested(_fake_cuda_tensor(True))
+    assert not cuda_grad_requested(_fake_cuda_tensor(False))
+    with torch.no_grad():
+        assert not cuda_grad_requested(_fake_cuda_tensor(True))
+    cpu = torch.zeros(2, requires_grad=True)
+    assert not cuda_grad_requested(cpu)  # the CPU twin has autograd
+    with pytest.raises(NotImplementedError, match="training slice"):
+        check_no_cuda_grad(_fake_cuda_tensor(True), "sweep_op")
+
+
+def test_sweep_op_and_tau_sweep_apply_the_guard():
+    from tpuvr_torch.kernels.lighting import tau_sweep
+
+    fake = _fake_cuda_tensor(True)
+    op = vjp.sweep_op(False, 1.0, 0.0, "cuda")
+    with pytest.raises(NotImplementedError, match="training slice"):
+        op(fake, None, None, None)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        tau_sweep(fake, d_y=0.0, d_x=0.0, dt=1.0)
+
+
+def test_build_digest_tracks_sources(tmp_path, monkeypatch):
+    for p in _build.CSRC_DIR.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(p.parent == _build.BUILD_DIR for p in before.values())
+    (tmp_path / "tent.cuh").write_text(
+        (tmp_path / "tent.cuh").read_text() + "\n// edit\n")
+    after = {n: _build.lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
+def test_every_source_is_built():
+    srcs = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert srcs == sorted(_build.SOURCES)
+    assert "-gencode" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_nvcc_prefers_cuda_home(tmp_path, monkeypatch):
+    (tmp_path / "bin").mkdir()
+    (tmp_path / "bin" / "nvcc").write_text("")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.nvcc() == str(tmp_path / "bin" / "nvcc")
+
+
+def test_build_dir_is_ignored():
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "tpuvr_torch/_build/" in lines
+
+
+def test_smoke_script_refuses_without_card():
+    """chip_smoke.py exits non-zero and prints no result line without a
+    card."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_configs_cover_the_main_path():
+    assert set(configs.CONFIGS) == {"c1", "c2", "c3", "headline"}
+    for cfg in configs.CONFIGS.values():
+        cam = configs.camera(cfg)
+        assert (cam.res_x, cam.res_y) == (cfg["res"], cfg["res"])
+    assert np.isclose(configs.orbit_persp(8, 8).fov_y, np.radians(40.0))

@@ -1,0 +1,77 @@
+"""Frozen config dataclasses: the same fields and defaults as the JAX
+package's ``RenderConfig`` and ``LightingConfig``.
+
+Fields that select paths this package does not run yet are kept so that a
+config moves across unchanged; the render path raises on the values it
+cannot honour instead of ignoring them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Ray-march discretization and termination.
+
+    Attributes:
+      mode: 'plane_sweep' samples where rays cross the integer planes of
+        the dominant axis (one grid slice per step). 'fixed_dt' is the
+        per-pixel oracle marcher, not ported yet.
+      precision: resample arithmetic. 'highest' is true f32; 'high' is the
+        3-term bf16 split (about 1e-6 relative); 'default' rounds weights,
+        values and the row-stage partial to bf16 and sums in f32 (about
+        5e-3 image error).
+      step_dt, max_steps: 'fixed_dt' parameters.
+      early_stop_eps: transmittance threshold for early ray termination;
+        0 disables it.
+      ert_chunks: slab chunks for whole-slab termination; only 1 is
+        ported.
+      use_occupancy: skip slices whose maximum density is <= 0 (lossless).
+      occupancy_brick: brick edge of the occupancy grid (unused by the
+        slice-level skip).
+      sigma_scale: multiplier on density before alpha conversion.
+      tmin: 'fixed_dt' ray start.
+      max_rows_per_call: intermediate rows per sweep call; larger frames
+        are row-chunked. None disables chunking.
+      oversample: intermediate-lattice density for non-separable cameras.
+    """
+
+    mode: str = "plane_sweep"
+    precision: str = "highest"
+    step_dt: float = 0.5
+    max_steps: Optional[int] = None
+    early_stop_eps: float = 1e-4
+    ert_chunks: int = 1
+    use_occupancy: bool = True
+    occupancy_brick: int = 8
+    sigma_scale: float = 1.0
+    tmin: float = 0.0
+    max_rows_per_call: Optional[int] = 512
+    oversample: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LightingConfig:
+    """Hemisphere-sampled single-scatter lighting.
+
+    Attributes:
+      mode: 'none', or 'lightvolume' (a sky-transmittance volume from
+        ``n_samples`` directional tau sweeps, multiplied into the emission
+        channels). 'persample' is the oracle path, not ported yet.
+      n_samples: hemisphere directions.
+      sky_intensity: radiance of the sky dome.
+      up: world up axis (x, y, z) of the hemisphere.
+      secondary_dt: step of the 'persample' marcher.
+      detach: True stops gradients at the light volume; only True is
+        ported.
+    """
+
+    mode: str = "none"
+    n_samples: int = 16
+    sky_intensity: float = 1.0
+    up: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    secondary_dt: float = 1.0
+    detach: bool = True

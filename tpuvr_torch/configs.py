@@ -1,0 +1,72 @@
+"""The render configs c1-c3 and the 256^3 @ 512^2 headline frame.
+
+Each entry has the sizes of the JAX package's ``configs/c1.py``-``c3.py``
+and of its benchmark frame (``bench.py``: front ortho, ERT 1e-4, the bf16
+'default' resample tier).
+"""
+
+from __future__ import annotations
+
+from tpuvr_torch.config import LightingConfig, RenderConfig
+from tpuvr_torch.ref.camera import OrthoCamera
+
+
+def front_ortho(n: int, res: int) -> OrthoCamera:
+    """Axis-aligned orthographic view along +z covering the grid."""
+    c = (n - 1) / 2.0
+    return OrthoCamera(
+        center=(c, c, -2.0 * n), forward=(0.0, 0.0, 1.0),
+        up=(0.0, 1.0, 0.0), width=1.4 * n, height=1.4 * n,
+        res_x=res, res_y=res,
+    )
+
+
+def orbit_persp(n: int, res: int):
+    """The first orbit camera: perspective, 20 degrees above the grid."""
+    from tpuvr_torch.io.synth import orbit_cameras
+
+    return orbit_cameras(1, n, res=res)[0]
+
+
+CAMERAS = {"front_ortho": front_ortho, "orbit_persp": orbit_persp}
+
+CONFIGS = {
+    "c1": {
+        "name": "c1",
+        "grid_n": 64,
+        "res": 256,
+        "camera": "front_ortho",
+        "render": RenderConfig(early_stop_eps=0.0, use_occupancy=False),
+        "lighting": None,
+    },
+    "c2": {
+        "name": "c2",
+        "grid_n": 128,
+        "res": 256,
+        "camera": "orbit_persp",
+        "render": RenderConfig(early_stop_eps=1e-4, use_occupancy=True),
+        "lighting": None,
+    },
+    "c3": {
+        "name": "c3",
+        "grid_n": 256,
+        "res": 512,
+        "camera": "orbit_persp",
+        "render": RenderConfig(early_stop_eps=1e-4, use_occupancy=True),
+        "lighting": LightingConfig(mode="lightvolume", n_samples=16),
+    },
+    "headline": {
+        "name": "headline",
+        "grid_n": 256,
+        "res": 512,
+        "camera": "front_ortho",
+        "render": RenderConfig(early_stop_eps=1e-4, precision="default"),
+        "lighting": None,
+    },
+}
+
+
+def camera(cfg: dict, n: int | None = None, res: int | None = None):
+    """The config's camera, optionally at a reduced grid size and
+    resolution."""
+    return CAMERAS[cfg["camera"]](n or cfg["grid_n"], res or cfg["res"])

@@ -1,0 +1,46 @@
+"""Hand-over of data from the JAX package.
+
+A renderer's parameters are its voxel grid, so a grid and a camera are
+all that cross over. Both arrive as plain data: a (Z, Y, X, 4) array
+(for example ``np.asarray`` of a JAX array) and a camera's dataclass
+fields.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuvr_torch.device import resolve_device
+from tpuvr_torch.ref.camera import OrthoCamera, PerspectiveCamera
+
+
+def grid_from_numpy(arr, device=None, dtype=torch.float32):
+    """(Z, Y, X, 4) array -> a contiguous copy on ``device`` (``None``
+    means the card). Copying leaves the source (often a read-only view of
+    a JAX array) untouched."""
+    a = np.asarray(arr)
+    if a.ndim != 4 or a.shape[-1] != 4:
+        raise ValueError(f"expected a (Z, Y, X, 4) grid, got {a.shape}")
+    return torch.tensor(a, dtype=dtype, device=resolve_device(device))
+
+
+_CAMERAS = {"OrthoCamera": OrthoCamera,
+            "PerspectiveCamera": PerspectiveCamera}
+
+
+def camera_from_fields(kind: str, **fields):
+    """Build a camera from another camera's dataclass fields.
+
+    ``kind`` is the camera's class name ('OrthoCamera' or
+    'PerspectiveCamera'). Vector fields become tuples of floats so the
+    camera stays hashable.
+    """
+    if kind not in _CAMERAS:
+        raise ValueError(f"unknown camera kind {kind!r}")
+    out = {}
+    for k, v in fields.items():
+        if isinstance(v, (tuple, list, np.ndarray)):
+            v = tuple(float(x) for x in v)
+        out[k] = v
+    return _CAMERAS[kind](**out)

@@ -1,0 +1,88 @@
+// Two-tap tent resampling shared by the sweep and tau-sweep kernels.
+//
+// The JAX package resamples a slice with banded matrices,
+//   A[i, y] = max(0, 1 - |pos_y(i) - y|),  B[x, j] = max(0, 1 - |pos_x(j) - x|),
+// as matmuls (the TPU has no fast gather). Each row of A and each column of
+// B has at most two non-zero entries, at floor(pos) and floor(pos) + 1, so on
+// a GPU one output sample is the 2x2 bilinear fetch those matmuls encode.
+// The weights are computed with the same f32 operations as the matrices, and
+// the row stage (over y) runs before the column stage (over x), so the
+// rounding stays that of the matmul form. Taps outside [0, n) read 0: the
+// vacuum border the tents give.
+#pragma once
+
+#include <stdint.h>
+
+namespace tpuvr {
+
+// Resample arithmetic tiers, as in the JAX package's sweep_dot.
+enum Precision : int { kHighest = 0, kHigh = 1, kDefault = 2 };
+
+// Round to the nearest bf16 value (ties to even), kept in f32. Bit-level, as
+// the JAX package's 'high' split does it; inputs are finite.
+__device__ __forceinline__ float round_bf16(float x) {
+  const uint32_t ui = __float_as_uint(x);
+  const uint32_t odd = (ui >> 16) & 1u;
+  return __uint_as_float((ui + 0x7FFFu + odd) & 0xFFFF0000u);
+}
+
+// a0*b0 + a1*b1 in a tier. 'high': the three dots a_hi b_hi, a_lo b_hi,
+// a_hi b_lo are summed in that order; 'default': one bf16 pass. Products of
+// two bf16 values are exact in f32, so those tiers round only in the sums.
+template <int P>
+__device__ __forceinline__ float dot2(float a0, float b0, float a1, float b1) {
+  if (P == kHighest) {
+    return __fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1));
+  } else if (P == kDefault) {
+    return __fadd_rn(__fmul_rn(round_bf16(a0), round_bf16(b0)),
+                     __fmul_rn(round_bf16(a1), round_bf16(b1)));
+  } else {
+    const float a0h = round_bf16(a0), a1h = round_bf16(a1);
+    const float b0h = round_bf16(b0), b1h = round_bf16(b1);
+    const float a0l = round_bf16(a0 - a0h), a1l = round_bf16(a1 - a1h);
+    const float b0l = round_bf16(b0 - b0h), b1l = round_bf16(b1 - b1h);
+    const float hh = __fadd_rn(__fmul_rn(a0h, b0h), __fmul_rn(a1h, b1h));
+    const float lh = __fadd_rn(__fmul_rn(a0l, b0h), __fmul_rn(a1l, b1h));
+    const float hl = __fadd_rn(__fmul_rn(a0h, b0l), __fmul_rn(a1h, b1l));
+    return __fadd_rn(__fadd_rn(hh, lh), hl);
+  }
+}
+
+// The two taps of one axis at position pos over extent n. A tap outside
+// [0, n) gets in = false; its index is clamped so that a read stays in
+// bounds, and the caller uses 0 for its value.
+struct Taps {
+  int i0, i1;
+  float w0, w1;
+  bool in0, in1;
+};
+
+__device__ __forceinline__ Taps tent_taps(float pos, int n) {
+  const float f0 = floorf(pos);
+  const float f1 = f0 + 1.0f;
+  Taps t;
+  t.w0 = fmaxf(0.0f, 1.0f - fabsf(pos - f0));
+  t.w1 = fmaxf(0.0f, 1.0f - fabsf(pos - f1));
+  const int i0 = static_cast<int>(f0);
+  t.in0 = i0 >= 0 && i0 < n;
+  t.in1 = i0 + 1 >= 0 && i0 + 1 < n;
+  t.i0 = t.in0 ? i0 : 0;
+  t.i1 = t.in1 ? i0 + 1 : 0;
+  return t;
+}
+
+// The sample of one (Y, X) plane at (ty, tx): row stage at columns i0 and
+// i1, then the column stage, in tier P.
+template <int P, typename Fetch>
+__device__ __forceinline__ float tent_sample(const Taps& ty, const Taps& tx,
+                                             Fetch fetch) {
+  const float g00 = (ty.in0 && tx.in0) ? fetch(ty.i0, tx.i0) : 0.0f;
+  const float g10 = (ty.in1 && tx.in0) ? fetch(ty.i1, tx.i0) : 0.0f;
+  const float g01 = (ty.in0 && tx.in1) ? fetch(ty.i0, tx.i1) : 0.0f;
+  const float g11 = (ty.in1 && tx.in1) ? fetch(ty.i1, tx.i1) : 0.0f;
+  const float r0 = dot2<P>(ty.w0, g00, ty.w1, g10);
+  const float r1 = dot2<P>(ty.w0, g01, ty.w1, g11);
+  return dot2<P>(r0, tx.w0, r1, tx.w1);
+}
+
+}  // namespace tpuvr

@@ -1,0 +1,264 @@
+"""Sweep geometry: factor a camera into per-slice separable resamples.
+
+In the permuted grid space (sweep axis -> dim 0) every ray is named by
+its intersection (u, v) with the base plane, and the sample position on
+plane p is affine in the lattice index for both camera models:
+
+  orthographic:  pos_x(j, p) = u_j + p * dx/dz            (translation)
+  perspective:   pos_x(j, p) = u_j * s_p + ex * (1 - s_p) (scale+translate)
+                 with s_p = 1 - p/ez   (eye at (ex, ey, ez))
+
+Planning is host-side float64 numpy (cameras are static) and hands
+tensors to the sweep. When the pixel -> base-plane map is not a regular
+separable lattice, a final bilinear warp (:func:`warp_to_pixels`, a
+4-tap gather) resamples the intermediate image to pixels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpuvr_torch.ref.camera import OrthoCamera, PerspectiveCamera, _basis
+from tpuvr_torch.ref.march import GRID_PERM, PT_PERM
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Static description of a sweep render.
+
+    Attributes:
+      axis: sweep axis in (x=0, y=1, z=2).
+      n_planes: number of planes (grid extent along axis).
+      reverse: True if rays traverse planes in decreasing index order.
+      lattice: (u0, du, v0, dv) base-plane lattice.
+      n_u/n_v: intermediate image resolution.
+      separable: True if the intermediate lattice equals the pixel grid.
+      ortho: True for orthographic cameras.
+      cam_params: ortho: (sx, sy) plane shear per unit plane index;
+        perspective: permuted eye (ex, ey, ez).
+      valid: (first, last) inclusive visible plane range; narrower than
+        the slab only for a perspective eye inside it (fly-through).
+    """
+
+    axis: int
+    n_planes: int
+    reverse: bool
+    lattice: Tuple[float, float, float, float]
+    n_u: int
+    n_v: int
+    separable: bool
+    ortho: bool
+    cam_params: Tuple[float, ...]
+    valid: Tuple[int, int] = (0, -1)
+
+
+def _permuted_camera(cam, axis: int):
+    """Camera basis and position with (x, y, z) permuted for the sweep."""
+    pp = list(PT_PERM[axis])
+    r, u, f = _basis(cam.forward, cam.up)
+    r, u, f = r[pp], u[pp], f[pp]
+    if isinstance(cam, OrthoCamera):
+        pos = np.asarray(cam.center, dtype=np.float64)[pp]
+    else:
+        pos = np.asarray(cam.eye, dtype=np.float64)[pp]
+    return r, u, f, pos
+
+
+def plan_sweep(cam, grid_shape, axis: int, oversample: float = 1.0):
+    """Build the :class:`SweepPlan` for a camera over a (Z, Y, X, C) grid.
+
+    Returns:
+      (plan, uv_pixel): ``uv_pixel`` is None when separable, else an
+      (res_y, res_x, 2) float64 array of each pixel ray's base-plane (u, v).
+    """
+    dims_p = [grid_shape[d] for d in GRID_PERM[axis][:3]]  # (S, Y, X)
+    n_planes = dims_p[0]
+    r, u, f, pos = _permuted_camera(cam, axis)
+    if abs(f[2]) < 1e-6:
+        raise ValueError("sweep axis must not be perpendicular to view dir")
+    reverse = f[2] < 0
+
+    res_x, res_y = cam.res_x, cam.res_y
+    jj = (np.arange(res_x) + 0.5) / res_x * 2.0 - 1.0
+    ii = 1.0 - (np.arange(res_y) + 0.5) / res_y * 2.0
+    uu, vv = np.meshgrid(jj, ii)
+
+    valid = (0, n_planes - 1)
+    if isinstance(cam, OrthoCamera):
+        o = (
+            pos[None, None, :]
+            + uu[..., None] * (cam.width * 0.5) * r
+            + vv[..., None] * (cam.height * 0.5) * u
+        )
+        d = np.broadcast_to(f, o.shape)
+        ortho = True
+        cam_params = (float(f[0] / f[2]), float(f[1] / f[2]))
+    elif isinstance(cam, PerspectiveCamera):
+        t = np.tan(cam.fov_y * 0.5)
+        aspect = res_x / res_y
+        d = f + uu[..., None] * (t * aspect) * r + vv[..., None] * t * u
+        o = np.broadcast_to(pos, d.shape)
+        ortho = False
+        ez = float(pos[2])
+        if abs(ez) < 1e-6:
+            raise ValueError(
+                "perspective eye on the sweep base plane (permuted z=0) "
+                "degenerates the base-plane ray parameterization; nudge "
+                "the camera"
+            )
+        if 0.0 <= ez <= n_planes - 1:
+            # Fly-through: planes behind the eye are masked (see valid).
+            if not reverse:
+                valid = (int(math.floor(ez)) + 1, n_planes - 1)
+            else:
+                valid = (0, int(math.ceil(ez)) - 1)
+            if valid[0] > valid[1]:
+                raise ValueError(
+                    "camera looks out of the slab: no visible planes"
+                )
+        cam_params = (float(pos[0]), float(pos[1]), ez)
+    else:
+        raise TypeError(f"unknown camera type: {type(cam)}")
+
+    tt = (0.0 - o[..., 2]) / d[..., 2]
+    base_u = o[..., 0] + d[..., 0] * tt
+    base_v = o[..., 1] + d[..., 1] * tt
+
+    du_col = np.diff(base_u, axis=1)
+    dv_row = np.diff(base_v, axis=0)
+    separable = (
+        np.ptp(base_u, axis=0).max() < 1e-9 * max(1.0, np.abs(base_u).max())
+        and np.ptp(base_v, axis=1).max()
+        < 1e-9 * max(1.0, np.abs(base_v).max())
+        and np.ptp(du_col) < 1e-9 * max(1.0, np.abs(du_col).max())
+        and np.ptp(dv_row) < 1e-9 * max(1.0, np.abs(dv_row).max())
+    )
+
+    if separable:
+        n_u, n_v = res_x, res_y
+        u0, du = float(base_u[0, 0]), float(du_col[0, 0])
+        v0, dv = float(base_v[0, 0]), float(dv_row[0, 0])
+        uv_pixel = None
+    else:
+        n_u = int(round(res_x * oversample))
+        n_v = int(round(res_y * oversample))
+        umin, umax = float(base_u.min()), float(base_u.max())
+        vmin, vmax = float(base_v.min()), float(base_v.max())
+        du = (umax - umin) / max(n_u - 1, 1)
+        dv = (vmax - vmin) / max(n_v - 1, 1)
+        u0, v0 = umin, vmin
+        uv_pixel = np.stack([base_u, base_v], axis=-1)
+
+    plan = SweepPlan(
+        axis=axis,
+        n_planes=n_planes,
+        reverse=bool(reverse),
+        lattice=(u0, du, v0, dv),
+        n_u=n_u,
+        n_v=n_v,
+        separable=bool(separable),
+        ortho=ortho,
+        cam_params=cam_params,
+        valid=valid,
+    )
+    return plan, uv_pixel
+
+
+def plan_valid_mask(plan: SweepPlan, dtype=torch.float32, device="cpu"):
+    """(S,) 0/1 mask of visible planes, in traversal order."""
+    p = np.arange(plan.n_planes)
+    mask = ((p >= plan.valid[0]) & (p <= plan.valid[1])).astype(np.float64)
+    if plan.reverse:
+        mask = mask[::-1].copy()
+    return torch.as_tensor(mask, dtype=dtype, device=device)
+
+
+def slice_coeffs(plan: SweepPlan, dtype=torch.float32, device="cpu"):
+    """Per-traversal-step affine coefficients (ay, by, ax, bx), four (S,)
+    tensors: step k samples row i at ``i*ay[k] + by[k]`` and column j at
+    ``j*ax[k] + bx[k]``."""
+    u0, du, v0, dv = plan.lattice
+    s = plan.n_planes
+    p = np.arange(s, dtype=np.float64)
+    if plan.reverse:
+        p = p[::-1]
+    if plan.ortho:
+        sx, sy = plan.cam_params
+        ax = np.full(s, du)
+        bx = u0 + p * sx
+        ay = np.full(s, dv)
+        by = v0 + p * sy
+    else:
+        ex, ey, ez = plan.cam_params
+        sp = 1.0 - p / ez
+        ax = du * sp
+        bx = u0 * sp + ex * (1.0 - sp)
+        ay = dv * sp
+        by = v0 * sp + ey * (1.0 - sp)
+    return tuple(
+        torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+        for a in (ay, by, ax, bx)
+    )
+
+
+def band_bounds(plan: SweepPlan) -> Tuple[float, float, float, float]:
+    """(max |ay|, max |ax|, min |ay|, min |ax|) over the visible slices:
+    the tent slopes, which bound how far apart neighbouring rays' taps
+    lie in a slice."""
+    u0, du, v0, dv = plan.lattice
+    if plan.ortho:
+        return (abs(float(dv)), abs(float(du)),
+                abs(float(dv)), abs(float(du)))
+    ez = plan.cam_params[2]
+    p_vis = np.arange(plan.valid[0], plan.valid[1] + 1, dtype=np.float64)
+    sp = np.abs(1.0 - p_vis / ez)
+    sp_max, sp_min = float(sp.max()), float(sp.min())
+    return (abs(float(dv)) * sp_max, abs(float(du)) * sp_max,
+            abs(float(dv)) * sp_min, abs(float(du)) * sp_min)
+
+
+def ray_dt(plan: SweepPlan, dtype=torch.float32, device="cpu"):
+    """Per-intermediate-ray step length (n_v, n_u) for unit-speed rays:
+    the constant ``1/|d_z|`` of each ray's direction."""
+    u0, du, v0, dv = plan.lattice
+    uj = u0 + du * np.arange(plan.n_u, dtype=np.float64)
+    vi = v0 + dv * np.arange(plan.n_v, dtype=np.float64)
+    uu, vv = np.meshgrid(uj, vi)
+    if plan.ortho:
+        sx, sy = plan.cam_params
+        dt = np.full_like(uu, np.sqrt(1.0 + sx * sx + sy * sy))
+    else:
+        ex, ey, ez = plan.cam_params
+        dt = np.sqrt((uu - ex) ** 2 + (vv - ey) ** 2 + ez * ez) / abs(ez)
+    return torch.as_tensor(dt, dtype=dtype, device=device)
+
+
+def warp_to_pixels(intermediate, plan: SweepPlan,
+                   uv_pixel: Optional[np.ndarray]):
+    """Bilinearly resample the (n_v, n_u, C) intermediate image at the
+    pixel base points (a 4-tap gather; identity when ``uv_pixel`` is
+    None). Linear in ``intermediate``."""
+    if uv_pixel is None:
+        return intermediate
+    u0, du, v0, dv = plan.lattice
+    uvp = torch.as_tensor(uv_pixel, dtype=intermediate.dtype,
+                          device=intermediate.device)
+    x = (uvp[..., 0] - u0) / du
+    y = (uvp[..., 1] - v0) / dv
+    x0 = torch.clamp(torch.floor(x), 0, plan.n_u - 2)
+    y0 = torch.clamp(torch.floor(y), 0, plan.n_v - 2)
+    fx = torch.clamp(x - x0, 0.0, 1.0)
+    fy = torch.clamp(y - y0, 0.0, 1.0)
+    x0, y0 = x0.long(), y0.long()
+    g = intermediate
+    return (
+        g[y0, x0] * ((1 - fy) * (1 - fx))[..., None]
+        + g[y0, x0 + 1] * ((1 - fy) * fx)[..., None]
+        + g[y0 + 1, x0] * (fy * (1 - fx))[..., None]
+        + g[y0 + 1, x0 + 1] * (fy * fx)[..., None]
+    )

@@ -1,0 +1,184 @@
+"""User-facing render entry points.
+
+``render_view(grid, cam)`` factors the camera into a sweep plan (host-side
+float64), streams the grid through the sweep kernel, and warps the
+intermediate image to pixels. For a frame loop over one grid, call
+:func:`prepare_grid` once and :func:`render_prepared` per frame.
+
+Every entry point takes ``device``: ``None`` is the card, and only
+``device="cpu"`` runs the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from tpuvr_torch.config import LightingConfig, RenderConfig
+from tpuvr_torch.device import resolve_device
+from tpuvr_torch.ops.geometry import (
+    plan_sweep,
+    plan_valid_mask,
+    ray_dt,
+    slice_coeffs,
+    warp_to_pixels,
+)
+from tpuvr_torch.ops.vjp import chunked_sweep, resolve_impl, sweep_op
+from tpuvr_torch.ref.camera import dominant_axis
+from tpuvr_torch.ref.march import GRID_PERM
+
+
+def grid_to_sweep_layout(grid, axis: int):
+    """(Z, Y, X, 4) -> contiguous (S, 4, Y, X) kernel layout for ``axis``."""
+    return grid.permute(GRID_PERM[axis]).permute(0, 3, 1, 2).contiguous()
+
+
+def sweep_layout_to_grid(grid_sc, axis: int):
+    """Inverse of :func:`grid_to_sweep_layout` (every GRID_PERM is an
+    involution)."""
+    return grid_sc.permute(0, 2, 3, 1).permute(GRID_PERM[axis]).contiguous()
+
+
+def _grid_shape_from_sweep(axis: int, gsc_shape):
+    """(S, 4, Y', X') -> the (Z, Y, X, 4) shape it was laid out from."""
+    s, _, yp, xp = gsc_shape
+    if axis == 0:
+        return (xp, yp, s, 4)
+    if axis == 1:
+        return (yp, s, xp, 4)
+    return (s, yp, xp, 4)
+
+
+def _check_cfg(cfg: RenderConfig):
+    if cfg.mode == "fixed_dt":
+        raise NotImplementedError("mode='fixed_dt' (the per-pixel oracle) "
+                                  "is not ported yet")
+    if cfg.mode != "plane_sweep":
+        raise ValueError(f"unknown render mode: {cfg.mode!r}")
+    if cfg.ert_chunks != 1:
+        raise NotImplementedError("ert_chunks > 1 is not ported yet")
+
+
+def prepare_grid(
+    grid,
+    axes=(0, 1, 2),
+    lighting: Optional[LightingConfig] = None,
+    precision: str = "highest",
+    device=None,
+):
+    """Per-grid-update work of the frame loop: the optional lighting bake,
+    the sweep-layout transpose and the per-slice max density.
+
+    Returns ``{axis: (grid_sc, slice_max)}`` for :func:`render_prepared`;
+    rebuild it whenever the grid or the lighting changes.
+    """
+    grid = torch.as_tensor(grid, device=resolve_device(device))
+    if lighting is not None and lighting.mode != "none":
+        from tpuvr_torch.ops.lighting import apply_lighting
+
+        grid = apply_lighting(grid, lighting, precision)
+    prep = {}
+    for axis in axes:
+        grid_sc = grid_to_sweep_layout(grid, axis)
+        slice_max = torch.amax(grid_sc[:, 0].detach(), dim=(1, 2))
+        prep[int(axis)] = (grid_sc, slice_max)
+    return prep
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_geometry(cam, grid_shape, axis, oversample, dtype, device):
+    """Plan, per-slice coefficients, dt, visibility mask and pixel base
+    points of one camera; cached because cameras are static and a frame
+    loop renders the same few again and again."""
+    plan, uv_pixel = plan_sweep(cam, grid_shape, axis, oversample=oversample)
+    coeffs = slice_coeffs(plan, dtype, device)
+    dt_map = ray_dt(plan, dtype, device)
+    valid = plan_valid_mask(plan, dtype, device)
+    uv = (None if uv_pixel is None
+          else torch.as_tensor(uv_pixel, dtype=dtype, device=device))
+    return plan, coeffs, dt_map, valid, uv
+
+
+def sweep_inputs(prep, cam, cfg: RenderConfig = RenderConfig(),
+                 device=None):
+    """The sweep's inputs for one view of a :func:`prepare_grid` result.
+
+    Returns (plan, uv_pixel, (grid_sc, coeffs, enables, dt_map)): the plan
+    and pixel base points for the warp, and the arguments of the sweep op
+    in its (S, 4, Y, X) / (V, U) layouts.
+    """
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    axis = dominant_axis(cam)
+    if axis not in prep:
+        raise ValueError(
+            f"camera sweeps axis {axis}, but prepare_grid was built for "
+            f"axes {sorted(prep)}"
+        )
+    grid_sc, slice_max = (t.to(dev) for t in prep[axis])
+    dtype = grid_sc.dtype
+    plan, coeffs, dt_map, valid, uv = _frame_geometry(
+        cam, _grid_shape_from_sweep(axis, tuple(grid_sc.shape)), axis,
+        cfg.oversample, dtype, dev,
+    )
+    if cfg.use_occupancy:
+        enables = (slice_max > 0.0).to(dtype)
+        if plan.reverse:
+            enables = enables.flip(0)
+    else:
+        enables = torch.ones(grid_sc.shape[0], dtype=dtype, device=dev)
+    # Fly-through cameras: planes behind the eye are gated to zero.
+    enables = enables * valid
+    return plan, uv, (grid_sc, coeffs, enables, dt_map)
+
+
+def render_prepared(
+    prep,
+    cam,
+    cfg: RenderConfig = RenderConfig(),
+    device=None,
+):
+    """Render one view from a :func:`prepare_grid` result.
+
+    Returns:
+      (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).
+    """
+    plan, uv, args = sweep_inputs(prep, cam, cfg, device)
+    op = sweep_op(plan.reverse, cfg.sigma_scale, cfg.early_stop_eps,
+                  resolve_impl("auto", args[0]), cfg.precision)
+    rgb, trans = chunked_sweep(op, *args, max_rows=cfg.max_rows_per_call)
+    inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+    img = warp_to_pixels(inter, plan, uv)
+    return img[..., :3], img[..., 3]
+
+
+def render_view(
+    grid,
+    cam,
+    cfg: RenderConfig = RenderConfig(),
+    lighting: Optional[LightingConfig] = None,
+    device=None,
+):
+    """Render one view of a (Z, Y, X, 4) voxel grid:
+    ``render_prepared(prepare_grid(grid, axes=(axis,)), cam)``.
+
+    Returns:
+      (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).
+    """
+    _check_cfg(cfg)
+    axis = dominant_axis(cam)
+    prep = prepare_grid(grid, axes=(axis,), lighting=lighting,
+                        precision=cfg.precision, device=device)
+    return render_prepared(prep, cam, cfg, device=device)
+
+
+def render(grid, cams, cfg: RenderConfig = RenderConfig(), **kw):
+    """Render a list of views; returns stacked (N, H, W, 3) and (N, H, W)."""
+    rgbs, ts = [], []
+    for cam in cams:
+        rgb, t = render_view(grid, cam, cfg, **kw)
+        rgbs.append(rgb)
+        ts.append(t)
+    return torch.stack(rgbs), torch.stack(ts)
