@@ -6,15 +6,22 @@ Run from the repository root, with one card visible:
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build the CUDA kernels from tpuvr_torch/csrc (into tpuvr_torch/_build);
+  1. build the CUDA kernels from tpuvr_torch/csrc (into tpuvr_torch/_build),
+     one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, and the whole render path against device="cpu" on
-     a small input;
-  3. the main path at full size through the entry points (device=None):
+     main paths' shapes (the backward sweep also against autograd of a
+     per-ray-terminating plain forward at eps > 0), and the whole render
+     path against device="cpu" on a small input;
+  3. the render path at full size through the entry points (device=None):
      c1, c2 and the 256^3 @ 512^2 headline frame as frame loops, and c3 lit
-     (16-direction light bake, then frames), timed with CUDA events; the
-     kernels' launch counts are zeroed before and read after;
-  4. print one JSON line per kernel (time, bound, plain and library
+     (16-direction light bake, then frames), timed with CUDA events;
+  4. the training path: c4 at full width (256^3 from 64 views at 256^2,
+     8 views a step) through fit_grid, as configured and in the fused
+     layout-resident mode, with one step held against the same step through
+     the plain versions; then a lit fit_grid with differentiable shadows at
+     128^3. Before each main path the kernels' launch counts are set to 0,
+     and they are read after it;
+  5. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the card's name and power limit from nvidia-smi, and last
      {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
@@ -22,17 +29,30 @@ Without a card it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 SWEEP_FLOPS_PER_SAMPLE = 40  # tent weights, 16 taps x 4 ch, exp, composite
 TAU_FLOPS_PER_VOXEL = 20     # tent weights, 4 taps, relu/fma, row+column
+# Backward sweep per sample: the forward's recompute (40), the adjoint
+# arithmetic (about 30), and the transposed resample of 4 channels (40).
+BWD_FLOPS_PER_SAMPLE = 110
+# Backward kernel against its plain version, as a share of max|grad|: f32
+# sums in another order at 'highest' and 'high'; at 'default' one bf16
+# rounding (2^-8) of a row-stage partial that the two orders may round to
+# neighbouring bf16 values.
+GRAD_TOL = {"highest": 1e-5, "high": 1e-5, "default": 4e-3}
 
 
 def log(msg):
@@ -54,11 +74,11 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps):
+def device_ms(fn, reps, n_top=3):
     """Device time per call from torch.profiler (the device-side kernel
     and memcpy events over ``reps`` calls; the host ops that launched them
-    report the same time and are skipped), and the three largest entries
-    by name; None if the profiler sees no device activity."""
+    report the same time and are skipped), and the ``n_top`` largest
+    entries by name; None if the profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -76,7 +96,7 @@ def device_ms(fn, reps):
             per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / 1e3 / reps
     if not per:
         return None, []
-    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
     return sum(per.values()), top
 
 
@@ -87,6 +107,388 @@ def check(cond, msg):
 
 def max_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def per_ray_sweep_fwd(grid_sc, coeffs, enables, dt_map, *, reverse=False,
+                      sigma_scale=1.0, early_stop_eps=0.0,
+                      precision="highest", softplus=False):
+    """Plain forward sweep that stops each ray at its own T < eps, as the
+    CUDA kernels do (the twin stops all rays at the global max): the
+    function whose autograd gradient the backward kernel is held against
+    at eps > 0."""
+    from tpuvr_torch.kernels.sweep_torch import (
+        _interp_matrices,
+        resample,
+        softplus_slice,
+    )
+
+    s, _, n_y, n_x = grid_sc.shape
+    n_v, n_u = dt_map.shape
+    ay, by, ax, bx = coeffs
+    rgb = grid_sc.new_zeros((3, n_v, n_u))
+    trans = grid_sc.new_ones((n_v, n_u))
+    for k in range(s):
+        sl = grid_sc[s - 1 - k if reverse else k]
+        if softplus:
+            sl = softplus_slice(sl)
+        mat_a, mat_b = _interp_matrices(ay[k], by[k], ax[k], bx[k], n_v, n_y,
+                                        n_x, n_u, grid_sc.dtype)
+        smp = resample(sl, mat_a, mat_b, precision)
+        att = torch.exp(-((sigma_scale * torch.clamp_min(smp[0], 0.0))
+                          * dt_map))
+        go = (enables[k] > 0) & (trans >= early_stop_eps)
+        att = torch.where(go, att, torch.ones_like(att))
+        rgb = rgb + (trans * (1.0 - att))[None] * smp[1:4]
+        trans = trans * att
+    return rgb, trans
+
+
+def sweep_bwd_bound(args):
+    """(bytes ms, operations ms) of one backward sweep: the grid's enabled
+    slices, the scalars and 9 ray planes (dt, rgb, T, their cotangents)
+    read once, the gradient written once; BWD_FLOPS_PER_SAMPLE per sample
+    of an enabled slice."""
+    grid_sc, coeffs, enables, dt_map = args
+    s, _, n_y, n_x = grid_sc.shape
+    n_v, n_u = dt_map.shape
+    n_en = int((enables > 0).sum())
+    nbytes = ((n_en + s) * 4 * n_y * n_x + 5 * s + 9 * n_v * n_u) * 4
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            BWD_FLOPS_PER_SAMPLE * n_v * n_u * n_en / F32_FLOP_PER_S * 1e3)
+
+
+def reset_counts():
+    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+
+    sweep.launches = sweep_bwd.launches = 0
+    lighting.launches = lighting.adj_launches = 0
+
+
+def read_counts():
+    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+
+    return {"sweep_fwd": sweep.launches, "sweep_bwd": sweep_bwd.launches,
+            "tau_sweep": lighting.launches, "tau_adj": lighting.adj_launches}
+
+
+def backward_kernels(dev):
+    """K3 (backward sweep) against sweep_bwd_torch, K1 with the fused
+    softplus against its twin, and K4 (tau adjoint) against
+    tau_sweep_adj_torch, on the card at the main paths' shapes. Returns
+    the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import lighting as klight
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+    from tpuvr_torch.kernels.sweep_torch import (
+        sweep_bwd_torch,
+        sweep_fwd_torch,
+    )
+    from tpuvr_torch.ops import render, vjp
+    from tpuvr_torch.ref.camera import dominant_axis
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def inputs(grid, cam, cfg):
+        prep = render.prepare_grid(grid, axes=(dominant_axis(cam),),
+                                   device=dev)
+        plan, _, args = render.sweep_inputs(prep, cam, cfg, dev)
+        return plan, args
+
+    def with_raw_density(args):
+        """The same slab with raw density parameters of both signs (the
+        fused-softplus layout)."""
+        raw = args[0].clone()
+        raw[:, 0] = randn(*raw[:, 0].shape) * 2.0 - 1.0
+        return (raw, *args[1:])
+
+    def hold(label, args, kw, tol):
+        rgb, t = sweep_fwd_torch(*args, **kw)
+        d_rgb, d_t = randn(3, *t.shape), randn(*t.shape)
+        k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
+        p = sweep_bwd_torch(*args, rgb, t, d_rgb, d_t, **kw)
+        torch.cuda.synchronize()
+        scale = float(p.abs().max())
+        err = float((k - p).abs().max())
+        log(f"[kernel] sweep_bwd {label}: max abs err {err:.3e} = "
+            f"{err / scale:.3e} of max|grad| {scale:.3e} (tol {tol:g})")
+        check(scale > 0 and err <= tol * scale
+              and bool(torch.isfinite(k).all()), f"sweep_bwd {label}")
+        return err, (rgb, t, d_rgb, d_t)
+
+    c4, c2 = configs.CONFIGS["c4"], configs.CONFIGS["c2"]
+    grid256 = smoke_sphere(c4["grid_n"], device=dev)
+    cases = {
+        "c4": (grid256, configs.cameras(c4)[0], c4["render"]),
+        "headline": (grid256, configs.camera(configs.CONFIGS["headline"]),
+                     configs.CONFIGS["headline"]["render"]),
+        "c2": (smoke_sphere(c2["grid_n"], device=dev), configs.camera(c2),
+               c2["render"]),
+    }
+    out = {"by_config": {}}
+    bwd_err = 0.0
+    for name, (grid, cam, run) in cases.items():
+        plan, args = inputs(grid, cam, run)
+        for softplus in (False, True):
+            a = with_raw_density(args) if softplus else args
+            kw = dict(reverse=plan.reverse, sigma_scale=run.sigma_scale,
+                      early_stop_eps=0.0, precision=run.precision,
+                      softplus=softplus)
+            err, _ = hold(f"{name} S={a[0].shape[0]} V,U="
+                          f"{tuple(a[3].shape)} {run.precision} "
+                          f"softplus={softplus}", a, kw,
+                          GRAD_TOL[run.precision])
+            if run.precision == "highest":
+                bwd_err = max(bwd_err, err)
+        kw = dict(reverse=plan.reverse, sigma_scale=run.sigma_scale,
+                  early_stop_eps=0.0, precision=run.precision)
+        rgb, t = ksweep.sweep_fwd(*args, **kw)
+        d_rgb, d_t = randn(3, *t.shape), randn(*t.shape)
+        bytes_ms, ops_ms = sweep_bwd_bound(args)
+        out["by_config"][name] = dict(
+            ms=cuda_ms(lambda: kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t,
+                                              **kw), 5),
+            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            slab=kbwd.slab_slices(args[0].shape[0], *t.shape))
+        if name == "c4":
+            out["plain_ms"] = cuda_ms(lambda: sweep_bwd_torch(
+                *args, rgb, t, d_rgb, d_t, **kw), 2)
+            # Two slabs threading the (trans, q) carry against one call.
+            for softplus in (False, True):
+                a = with_raw_density(args) if softplus else args
+                kwc = dict(kw, early_stop_eps=0.0, softplus=softplus)
+                r2, t2 = ksweep.sweep_fwd(*a, **kwc)
+                one = kbwd.sweep_bwd(*a, r2, t2, d_rgb, d_t, **kwc)
+                two = vjp._chunked_bwd(kbwd.sweep_bwd, 2, *a, r2, t2, d_rgb,
+                                       d_t, kwc)
+                scale = float(one.abs().max())
+                err = float((two - one).abs().max())
+                log(f"[kernel] sweep_bwd c4 two slabs vs one call "
+                    f"softplus={softplus}: {err / scale:.3e} of max|grad| "
+                    "(tol 1e-5)")
+                check(err <= 1e-5 * scale, "sweep_bwd carry")
+            # K1's fused softplus against its twin.
+            raw = with_raw_density(args)
+            kws = dict(kw, softplus=True)
+            k = ksweep.sweep_fwd(*raw, **kws)
+            p = sweep_fwd_torch(*raw, **kws)
+            out["softplus_fwd_err"] = max_err(k, p)
+            out["softplus_fwd_ms"] = cuda_ms(
+                lambda: ksweep.sweep_fwd(*raw, **kws), 10)
+            log(f"[kernel] sweep_fwd softplus c4: max abs err "
+                f"{out['softplus_fwd_err']:.3e} (tol 1e-5), "
+                f"{out['softplus_fwd_ms']:.4f} ms")
+            check(out["softplus_fwd_err"] <= 1e-5, "sweep_fwd softplus")
+            del raw, one, two
+        log(f"[kernel] sweep_bwd {name} ({run.precision}): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in out["by_config"][name].items()))
+    out["max_abs_err"] = bwd_err
+
+    # eps > 0 on a scene whose rays terminate: the kernels against autograd
+    # of the per-ray-terminating plain forward.
+    grid, cam, run = cases["c2"]
+    plan, args = inputs(grid + torch.tensor([0.05, 0.0, 0.0, 0.0],
+                                            device=dev), cam, run)
+    for softplus in (False, True):
+        a = with_raw_density(args) if softplus else args
+        kw = dict(reverse=plan.reverse, sigma_scale=1.0, early_stop_eps=1e-2,
+                  precision="highest", softplus=softplus)
+        rgb, t = ksweep.sweep_fwd(*a, **kw)
+        n_term = int((t < 1e-2).sum())
+        g = a[0].clone().requires_grad_(True)
+        ref_rgb, ref_t = per_ray_sweep_fwd(g, *a[1:], **kw)
+        d_rgb, d_t = randn(3, *t.shape), randn(*t.shape)
+        ((ref_rgb * d_rgb).sum() + (ref_t * d_t).sum()).backward()
+        k = kbwd.sweep_bwd(*a, rgb, t, d_rgb, d_t, **kw)
+        fwd_err = max_err((rgb, t), (ref_rgb.detach(), ref_t.detach()))
+        scale = float(g.grad.abs().max())
+        err = float((k - g.grad).abs().max())
+        log(f"[kernel] sweep_bwd c2 eps 1e-2 softplus={softplus}, "
+            f"{n_term} of {t.numel()} rays terminated: forward max abs err "
+            f"{fwd_err:.3e} (tol 1e-5), gradient {err / scale:.3e} of "
+            "max|grad| against per-ray autograd (tol 1e-5)")
+        check(n_term > 0 and fwd_err <= 1e-5 and err <= 1e-5 * scale,
+              f"sweep_bwd eps>0 softplus={softplus}")
+    del cases, grid, args, a, g
+
+    # K4 at 256^3, the two directions K2 is held at, every tier.
+    adj_err = 0.0
+    g = randn(*grid256.shape[:3])
+    del grid256
+    for d_y, d_x in ((0.31, 0.52), (-0.44, -0.9)):
+        dt = (1.0 + d_y * d_y + d_x * d_x) ** 0.5
+        for prec in ("highest", "high", "default"):
+            kw = dict(d_y=d_y, d_x=d_x, dt=dt, precision=prec)
+            k = klight.tau_sweep_adj(g, **kw)
+            p = klight.tau_sweep_adj_torch(g, **kw)
+            torch.cuda.synchronize()
+            scale = float(p.abs().max())
+            err = float((k - p).abs().max())
+            log(f"[kernel] tau_adj 256^3 d=({d_y:g},{d_x:g}) {prec}: max "
+                f"abs err {err:.3e} = {err / scale:.3e} of max {scale:.3f} "
+                "(tol 1e-5)")
+            check(err <= 1e-5 * scale and bool(torch.isfinite(k).all())
+                  and bool((k[0] == 0).all()), f"tau_adj {prec}")
+            if prec == "highest":
+                adj_err = max(adj_err, err)
+    kw = dict(d_y=0.31, d_x=0.52, dt=(1 + 0.31**2 + 0.52**2) ** 0.5)
+    out["adj_ms"] = cuda_ms(lambda: klight.tau_sweep_adj(g, **kw), 5)
+    out["adj_plain_ms"] = cuda_ms(lambda: klight.tau_sweep_adj_torch(g, **kw),
+                                  2)
+    out["adj_err"] = adj_err
+    out["adj_bytes_ms"] = 2 * g.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    out["adj_ops_ms"] = 4 * g.numel() / F32_FLOP_PER_S * 1e3
+    out["adj_planes"] = g.shape[0]
+    log(f"[kernel] tau_adj 256^3: {out['adj_ms']:.4f} ms/direction (plain "
+        f"{out['adj_plain_ms']:.4f}, bound {out['adj_bytes_ms']:.4f})")
+    return out
+
+
+class _CaptureGrad:
+    """An optimizer whose state after a step is the step's gradient."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state):
+        return torch.zeros_like(grads), grads
+
+
+def training(dev, run_root):
+    """The training main paths: c4 at full width through fit_grid, as
+    configured and fused; one c4 step through the kernels against the same
+    step through the plain versions; a lit fit with differentiable shadows
+    at 128^3. Returns the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.train import fit
+
+    c4 = configs.CONFIGS["c4"]
+    run = c4["render"]
+    n = c4["grid_n"]
+    shape = (n, n, n, 4)
+    cams = configs.cameras(c4)
+    t0 = time.time()
+    targets = fit.render_all_views(smoke_sphere(n), cams, run)
+    torch.cuda.synchronize()
+    log(f"[main] c4 targets: {len(cams)} views at {c4['res']}^2 rendered in "
+        f"{time.time() - t0:.2f} s")
+    check(targets.shape == (len(cams), c4["res"], c4["res"], 3)
+          and bool(torch.isfinite(targets).all())
+          and float(targets.max()) > 0.0, "c4 targets")
+
+    def fit_run(label, steps, k, fused):
+        cfg = dataclasses.replace(c4["train"], steps=steps,
+                                  steps_per_call=k)
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        grid, params, hist = fit.fit_grid(
+            targets, cams, shape, cfg, run, run_dir=f"{run_root}/{label}",
+            fused=fused)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = read_counts()
+        loss = hist["loss"]
+        ms = float(np.mean(hist["step_ms"][1:]))
+        log(f"[main] c4 {label} ({steps} steps, steps_per_call {k}, fused "
+            f"{fused}): {ms:.3f} ms/step after the first "
+            f"({hist['step_ms'][0]:.1f} ms), loss {loss[0]:.5f} -> "
+            f"{loss[-1]:.5f}, launches {counts}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"fit_grid wall {wall:.2f} s")
+        check(len(loss) == steps and all(np.isfinite(loss)),
+              f"c4 {label} losses")
+        check(loss[-1] < loss[0], f"c4 {label}: the loss did not fall")
+        check(counts["sweep_fwd"] > 0 and counts["sweep_bwd"] > 0,
+              f"c4 {label} did not go through the sweep kernels")
+        check(bool(torch.isfinite(grid).all()), f"c4 {label} grid")
+        return dict(ms_per_step=ms, first_step_ms=hist["step_ms"][0],
+                    loss_first=loss[0], loss_last=loss[-1], launches=counts,
+                    steps=steps, steps_per_call=k, fused=fused,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    out = {"c4": fit_run("configured", 10, 1, False),
+           "c4_fused": fit_run("fused", 8, 4, True)}
+
+    # Device-busy share: device time per step of an 8-step fit
+    # (torch.profiler's device events, set-up included) over the ms/step
+    # of the unprofiled run above (the profiler slows the host).
+    n_prof = 8
+    for label, k, fused in (("c4", 1, False), ("c4_fused", 4, True)):
+        def short(k=k, fused=fused):
+            cfg = dataclasses.replace(c4["train"], steps=n_prof,
+                                      steps_per_call=k, ckpt_every=0)
+            fit.fit_grid(targets, cams, shape, cfg, run,
+                         run_dir=f"{run_root}/profiled", fused=fused)
+
+        dev_ms, top = device_ms(short, 1, n_top=8)
+        per_step = None if dev_ms is None else dev_ms / n_prof
+        out[label].update(
+            device_ms_per_step=per_step,
+            device_busy=(None if dev_ms is None
+                         else per_step / out[label]["ms_per_step"]))
+        log(f"[main] c4 {label} device time: " + (
+            "not measured (the profiler saw no device activity)"
+            if dev_ms is None else
+            f"{per_step:.3f} ms/step, busy "
+            f"{out[label]['device_busy']:.3f} of the step; by kernel "
+            + "; ".join(f"{k} {v / n_prof:.3f} ms/step" for k, v in top)))
+
+    # One c4 step through the kernels against the same step through the
+    # plain versions, from one state: loss and gradient.
+    groups = fit.group_views(cams, shape)
+    key = sorted(groups)[0]
+    idxs, stacked, _ = groups[key]
+    stacked = {name: t.to(dev) for name, t in stacked.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = fit.init_params(shape, True) + 0.3 * torch.randn(
+        shape, generator=gen, device=dev)
+    res = {}
+    for impl in ("cuda", "torch"):
+        step = fit.make_train_step(key, 8, _CaptureGrad(), run, True, impl)
+        _, grad, loss = step(params, None, stacked,
+                             targets[torch.as_tensor(idxs, device=dev)],
+                             np.arange(8), np.zeros(8, np.int32))
+        res[impl] = (float(loss), grad)
+    rel = abs(res["cuda"][0] - res["torch"][0]) / res["torch"][0]
+    scale = float(res["torch"][1].abs().max())
+    gerr = float((res["cuda"][1] - res["torch"][1]).abs().max())
+    log(f"[main] c4 step, kernels vs plain on the card: loss "
+        f"{res['cuda'][0]:.7f} vs {res['torch'][0]:.7f} ({rel:.2e} relative, "
+        f"tol 1e-6); gradient {gerr / scale:.3e} of max|grad| {scale:.3e} "
+        "(tol 1e-5)")
+    check(rel <= 1e-6 and gerr <= 1e-5 * scale, "c4 step kernels vs plain")
+    out["step_check"] = dict(loss_rel_err=rel, grad_err_of_max=gerr / scale)
+    del groups, stacked, params, res, grad
+
+    # Lit training with differentiable shadows, reduced to 128^3.
+    nl = n // 2
+    lcfg = LightingConfig(mode="lightvolume", n_samples=16, detach=False)
+    lcams = configs.cameras(c4, n=nl, res=nl, n_views=8)
+    ltargets = fit.render_all_views(smoke_sphere(nl), lcams, run,
+                                    lighting=lcfg)
+    cfg = dataclasses.replace(c4["train"], steps=2, ckpt_every=0)
+    reset_counts()
+    grid, _, hist = fit.fit_grid(ltargets, lcams, (nl, nl, nl, 4), cfg, run,
+                                 run_dir=f"{run_root}/lit", lighting=lcfg)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"[main] lit fit {nl}^3, 16 directions, detach=False: "
+        f"{hist['step_ms'][-1]:.2f} ms for the second step, loss "
+        f"{hist['loss'][0]:.5f} -> {hist['loss'][-1]:.5f}, launches {counts}")
+    check(counts["tau_adj"] > 0 and counts["tau_sweep"] > 0
+          and counts["sweep_bwd"] > 0, "lit fit did not launch the kernels")
+    check(bool(torch.isfinite(grid).all()), "lit fit grid")
+    out["lit"] = dict(second_step_ms=hist["step_ms"][-1], launches=counts,
+                      loss=hist["loss"])
+    return out
 
 
 def main():
@@ -242,6 +644,7 @@ def main():
                            2)
     log(f"[kernel] tau_sweep 256^3: {tau_ms:.4f} ms/direction "
         f"(plain {tau_plain_ms:.4f})")
+    bwd = backward_kernels(dev)
 
     # Whole render path: card against device="cpu" on small inputs.
     for name, n, res, n_dirs in (("c2", 32, 48, None), ("c3", 24, 40, 4)):
@@ -336,8 +739,22 @@ def main():
     check(launches["sweep_fwd"] > 0, "main path never launched sweep_fwd")
     check(launches["tau_sweep"] > 0, "main path never launched tau_sweep")
 
-    # 4. Summary.
+    # 4. The training path.
+    run_root = tempfile.mkdtemp(prefix=".chip_smoke_",
+                                dir=Path(__file__).resolve().parent)
+    try:
+        train = training(dev, run_root)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    train_paths = ("c4", "c4_fused", "lit")
+    launches_by_path = {
+        name: {"render": launches.get(name, 0),
+               **{p: train[p]["launches"][name] for p in train_paths}}
+        for name in ("sweep_fwd", "sweep_bwd", "tau_sweep", "tau_adj")}
+
+    # 5. Summary.
     head = sweep_ms["headline"]
+    bc4 = bwd["by_config"]["c4"]
     kernels = [
         {
             "name": "sweep_fwd", "route": "cuda",
@@ -355,12 +772,17 @@ def main():
             "library_call": "grid_sample of one slice x S (yardstick)",
             "shape": "headline 256^3 @ 512^2, default, eps 1e-4",
             "by_config": sweep_ms,
+            "launches_by_path": launches_by_path["sweep_fwd"],
+            "softplus_max_abs_err": bwd["softplus_fwd_err"],
+            "softplus_ms_c4": bwd["softplus_fwd_ms"],
         },
         {
             "name": "tau_sweep", "route": "cuda",
             "source": "tpuvr_torch/csrc/tau_sweep.cu",
             "replaces": "tpuvr/kernels/lighting.py:33",
+            "also_replaces": "tpuvr/kernels/lighting.py:176",
             "launches": launches["tau_sweep"],
+            "launches_by_path": launches_by_path["tau_sweep"],
             "plane_launches_per_call": tau_planes - 1,
             "max_abs_err": tau_err,
             "ms": tau_ms,
@@ -371,8 +793,44 @@ def main():
             "library_ms": None,
             "shape": "one direction at 256^3, highest",
         },
+        {
+            "name": "sweep_bwd", "route": "cuda",
+            "source": "tpuvr_torch/csrc/sweep_bwd.cu",
+            "replaces": "tpuvr/kernels/sweep_bwd.py:58",
+            "also_replaces": "tpuvr/kernels/sweep_bwd.py:341",
+            "launches": sum(train[p]["launches"]["sweep_bwd"]
+                            for p in train_paths),
+            "launches_by_path": launches_by_path["sweep_bwd"],
+            "max_abs_err": bwd["max_abs_err"],
+            "ms": bc4["ms"],
+            "plain_ms": bwd["plain_ms"],
+            "bound_ms": max(bc4["bytes_ms"], bc4["ops_ms"]),
+            "bound_by": ("bytes" if bc4["bytes_ms"] >= bc4["ops_ms"]
+                         else "operations"),
+            "library_ms": None,
+            "shape": "c4: 256^3, first orbit view at 256^2, highest",
+            "by_config": bwd["by_config"],
+        },
+        {
+            "name": "tau_adj", "route": "cuda",
+            "source": "tpuvr_torch/csrc/tau_adj.cu",
+            "replaces": "tpuvr/kernels/lighting.py:64",
+            "also_replaces": "tpuvr/kernels/lighting.py:131",
+            "launches": train["lit"]["launches"]["tau_adj"],
+            "launches_by_path": launches_by_path["tau_adj"],
+            "plane_launches_per_call": bwd["adj_planes"] - 1,
+            "max_abs_err": bwd["adj_err"],
+            "ms": bwd["adj_ms"],
+            "plain_ms": bwd["adj_plain_ms"],
+            "bound_ms": max(bwd["adj_bytes_ms"], bwd["adj_ops_ms"]),
+            "bound_by": ("bytes" if bwd["adj_bytes_ms"] >= bwd["adj_ops_ms"]
+                         else "operations"),
+            "library_ms": None,
+            "shape": "one direction at 256^3, highest",
+        },
     ]
     log(json.dumps({"frames": frames}))
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,7 +1,10 @@
-"""tpuvr_torch's light volume held against the JAX package's lighting:
-the scan path (``impl='xla'``) and, at a tiny size, the Pallas tau-sweep
-kernel in interpret mode. Tolerances: f64 1e-12, f32 1e-5."""
+"""tpuvr_torch's light volume and its gradient held against the JAX
+package's lighting: the scan path (``impl='xla'``) and its autodiff, and
+at a tiny size the Pallas tau-sweep kernel and its adjoint in interpret
+mode. Tolerances: f64 1e-12, f32 1e-5 (of the largest value for
+gradients)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,10 +95,70 @@ def test_tau_wrapper_runs_twin_on_cpu():
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (LightingConfig(mode="lightvolume", detach=False), NotImplementedError),
+    (LightingConfig(mode="persample", detach=False), NotImplementedError),
     (LightingConfig(mode="persample"), NotImplementedError),
     (LightingConfig(mode="bogus"), ValueError),
 ])
 def test_apply_lighting_refuses_unported_modes(cfg, err):
     with pytest.raises(err):
         tlight.apply_lighting(torch.zeros(4, 4, 4, 4), cfg)
+
+
+@pytest.mark.parametrize("d", [(0.45, -0.7), (-1.0, 0.3)])
+def test_tau_adj_twin_matches_pallas_interpret(d):
+    g = np.random.default_rng(3).normal(size=(8, 8, 8)).astype(np.float32)
+    kw = dict(d_y=d[0], d_x=d[1], dt=1.3)
+    ref = np.asarray(jklight.tau_sweep_adj(jnp.asarray(g), interpret=True,
+                                           **kw))
+    out = tklight.tau_sweep_adj_torch(torch.as_tensor(g), **kw).numpy()
+    assert np.all(out[0] == 0)
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("w", [(0.3, 0.2, 0.93), (0.8, -0.5, -0.33),
+                               (0.2, -0.9, 0.39)])
+def test_tau_gradient_matches_jax_autodiff(dtype, w):
+    """The tau op's adjoint against JAX autodiff of the scan path."""
+    w = np.asarray(w) / np.linalg.norm(w)
+    sig = _sigma(dtype) - 0.02  # some voxels below 0: the relu mask
+    ct = np.random.default_rng(4).normal(size=sig.shape).astype(dtype)
+    _, vjp = jax.vjp(lambda s: jlight._directional_tau(s, w, impl="xla"),
+                     jnp.asarray(sig))
+    (ref,) = vjp(jnp.asarray(ct))
+    s = torch.as_tensor(sig).requires_grad_(True)
+    (tlight._directional_tau(s, w) * torch.as_tensor(ct)).sum().backward()
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(s.grad.numpy(), ref, rtol=0,
+                               atol=TOL[dtype] * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_apply_lighting_shadow_gradients_match(dtype):
+    """``apply_lighting(detach=False)``: gradients through the emission
+    product and the shadows, against ``jax.grad`` of the JAX one."""
+    grid = np.array(smoke_sphere(N, dtype=jnp.dtype(dtype)))
+    wts = np.random.default_rng(5).normal(size=grid.shape).astype(dtype)
+    jcfg = JLightingConfig(mode="lightvolume", n_samples=4, detach=False)
+    ref = np.asarray(jax.grad(lambda g: jnp.sum(
+        jlight.apply_lighting(g, jcfg, impl="xla") * wts))(
+            jnp.asarray(grid)))
+    g = torch.as_tensor(grid).requires_grad_(True)
+    (tlight.apply_lighting(g, LightingConfig(mode="lightvolume", n_samples=4,
+                                             detach=False))
+     * torch.as_tensor(wts)).sum().backward()
+    np.testing.assert_allclose(g.grad.numpy(), ref, rtol=0,
+                               atol=TOL[dtype] * np.abs(ref).max())
+    # The shadows move the density gradient: detached, it is zero.
+    assert np.abs(ref[..., 0]).max() > 1e-3
+
+
+def test_tau_adj_wrapper_runs_twin_on_cpu():
+    g = torch.as_tensor(_sigma("float32"))
+    before = tklight.adj_launches
+    a = tklight.tau_sweep_adj(g, d_y=0.2, d_x=-0.4, dt=1.1, precision="high")
+    b = tklight.tau_sweep_adj_torch(g, d_y=0.2, d_x=-0.4, dt=1.1,
+                                    precision="high")
+    assert tklight.adj_launches == before
+    assert torch.equal(a, b)

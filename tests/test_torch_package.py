@@ -1,12 +1,11 @@
 """tpuvr_torch as a package: it stands apart from JAX, imports without a
-CUDA toolkit, never falls back to the CPU quietly, and refuses gradients
-its kernels cannot give."""
+CUDA toolkit, never falls back to the CPU quietly, and binds its kernels'
+gradients as autograd Functions."""
 
 import ast
 import os
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -14,11 +13,7 @@ import pytest
 import torch
 
 from tpuvr_torch import configs
-from tpuvr_torch.device import (
-    check_no_cuda_grad,
-    cuda_grad_requested,
-    resolve_device,
-)
+from tpuvr_torch.device import resolve_device
 from tpuvr_torch.io.synth import smoke_sphere
 from tpuvr_torch.kernels import _build
 from tpuvr_torch.ops import lighting, render, vjp
@@ -43,7 +38,8 @@ def test_no_jax_or_tpuvr_imports(path):
     assert path.exists()
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "tpuvr", "configs"), (
+        assert top not in ("jax", "jaxlib", "optax", "orbax", "tpuvr",
+                           "configs"), (
             f"{path.name} imports {mod}")
 
 
@@ -98,30 +94,45 @@ def test_resolve_device(no_card):
         resolve_device("meta")
 
 
-def _fake_cuda_tensor(requires_grad):
-    return types.SimpleNamespace(is_cuda=True, requires_grad=requires_grad)
+def test_card_ops_are_autograd_functions(monkeypatch):
+    """On the card the sweep and tau ops are autograd Functions whose
+    backward calls the backward kernels' wrappers (stand-ins here record
+    the calls), with no guard in the way."""
+    from tpuvr_torch.kernels import sweep_torch
+    from tpuvr_torch.ops import lighting as olight
 
+    calls = []
 
-def test_gradient_guard_predicate():
-    assert cuda_grad_requested(_fake_cuda_tensor(True))
-    assert not cuda_grad_requested(_fake_cuda_tensor(False))
-    with torch.no_grad():
-        assert not cuda_grad_requested(_fake_cuda_tensor(True))
-    cpu = torch.zeros(2, requires_grad=True)
-    assert not cuda_grad_requested(cpu)  # the CPU twin has autograd
-    with pytest.raises(NotImplementedError, match="training slice"):
-        check_no_cuda_grad(_fake_cuda_tensor(True), "sweep_op")
+    def bwd(*args, **kw):
+        calls.append("sweep_bwd")
+        return sweep_torch.sweep_bwd_torch(*args, **kw)
 
-
-def test_sweep_op_and_tau_sweep_apply_the_guard():
-    from tpuvr_torch.kernels.lighting import tau_sweep
-
-    fake = _fake_cuda_tensor(True)
+    monkeypatch.setattr(vjp, "sweep_fwd", sweep_torch.sweep_fwd_torch)
+    monkeypatch.setattr(vjp, "sweep_bwd", bwd)
     op = vjp.sweep_op(False, 1.0, 0.0, "cuda")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        op(fake, None, None, None)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tau_sweep(fake, d_y=0.0, d_x=0.0, dt=1.0)
+    grid = smoke_sphere(6, device="cpu")
+    prep = render.prepare_grid(grid, axes=(2,), device="cpu")
+    _, _, (gsc, coeffs, en, dt) = render.sweep_inputs(
+        prep, configs.front_ortho(6, 8), device="cpu")
+    gsc = gsc.clone().requires_grad_(True)
+    rgb, t = op(gsc, coeffs, en, dt)
+    assert type(rgb.grad_fn).__name__ == "_SweepBackward"
+    (rgb.sum() + t.sum()).backward()
+    assert calls == ["sweep_bwd"] and float(gsc.grad.abs().max()) > 0
+
+    monkeypatch.setattr(olight, "tau_sweep_adj",
+                        lambda g, **kw: calls.append("tau_adj") or g)
+    sig = grid[..., 0].clone().requires_grad_(True)
+    olight._directional_tau(sig, (0.0, 0.3, 0.95)).sum().backward()
+    assert calls[-1] == "tau_adj"
+
+
+def test_fit_grid_refuses_a_mesh():
+    from tpuvr_torch.train import fit
+
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        fit.fit_grid(np.zeros((1, 4, 4, 3)), [configs.front_ortho(4, 4)],
+                     (4, 4, 4, 4), mesh=object(), device="cpu")
 
 
 def test_build_digest_tracks_sources(tmp_path, monkeypatch):
@@ -167,8 +178,19 @@ def test_smoke_script_refuses_without_card():
 
 
 def test_configs_cover_the_main_path():
-    assert set(configs.CONFIGS) == {"c1", "c2", "c3", "headline"}
-    for cfg in configs.CONFIGS.values():
+    assert set(configs.CONFIGS) == {"c1", "c2", "c3", "headline", "c4"}
+    for name, cfg in configs.CONFIGS.items():
+        if name == "c4":
+            continue
         cam = configs.camera(cfg)
         assert (cam.res_x, cam.res_y) == (cfg["res"], cfg["res"])
     assert np.isclose(configs.orbit_persp(8, 8).fov_y, np.radians(40.0))
+    c4 = configs.CONFIGS["c4"]
+    with pytest.raises(ValueError, match="cameras"):
+        configs.camera(c4)
+    cams = configs.cameras(c4, n=8, res=8)
+    assert len(cams) == 64 and (cams[0].res_x, cams[0].res_y) == (8, 8)
+    train = c4["train"]
+    assert (c4["grid_n"], c4["res"], train.lr, train.views_per_batch,
+            train.ckpt_every) == (256, 256, 5e-2, 8, 200)
+    assert c4["render"].early_stop_eps == 0.0 and c4["render"].use_occupancy

@@ -1,5 +1,5 @@
 """Frozen config dataclasses: the same fields and defaults as the JAX
-package's ``RenderConfig`` and ``LightingConfig``.
+package's ``RenderConfig``, ``LightingConfig`` and ``TrainConfig``.
 
 Fields that select paths this package does not run yet are kept so that a
 config moves across unchanged; the render path raises on the values it
@@ -65,8 +65,8 @@ class LightingConfig:
       sky_intensity: radiance of the sky dome.
       up: world up axis (x, y, z) of the hemisphere.
       secondary_dt: step of the 'persample' marcher.
-      detach: True stops gradients at the light volume; only True is
-        ported.
+      detach: True stops gradients at the light volume; False
+        differentiates the shadows too (through the tau sweeps' adjoint).
     """
 
     mode: str = "none"
@@ -75,3 +75,38 @@ class LightingConfig:
     up: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     secondary_dt: float = 1.0
     detach: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Inverse-rendering loop (``tpuvr_torch.train.fit.fit_grid``).
+
+    Attributes:
+      lr: Adam learning rate on the voxel grid.
+      steps: optimization steps.
+      views_per_batch: posed views per minibatch.
+      rays_per_view: if set, render only a row band of about this many
+        rays per view per step.
+      ckpt_every: checkpoint interval in steps (0 disables).
+      ckpt_dir: checkpoint (and metrics) directory when ``fit_grid`` gets
+        no ``run_dir``.
+      ckpt_bf16: store f32 state as bf16 in checkpoints (half the bytes;
+        restore casts back, one bf16 rounding per resume).
+      seed: seed of the minibatch draws.
+      density_softplus: parameterize density through softplus.
+      steps_per_call: steps of one view group run back to back before the
+        next group; > 1 also lets ``fit_grid`` keep the training state in
+        the group's sweep layout (the fused-softplus mode). Metrics and
+        checkpoints land at block boundaries.
+    """
+
+    lr: float = 1e-1
+    steps: int = 500
+    views_per_batch: int = 8
+    rays_per_view: Optional[int] = None
+    ckpt_every: int = 100
+    ckpt_dir: str = "/tmp/tpuvr_ckpt"
+    ckpt_bf16: bool = False
+    seed: int = 0
+    density_softplus: bool = True
+    steps_per_call: int = 1

@@ -1,13 +1,15 @@
-"""The render configs c1-c3 and the 256^3 @ 512^2 headline frame.
+"""The render configs c1-c3, the 256^3 @ 512^2 headline frame and the
+training config c4.
 
-Each entry has the sizes of the JAX package's ``configs/c1.py``-``c3.py``
+Each entry has the sizes of the JAX package's ``configs/c1.py``-``c4.py``
 and of its benchmark frame (``bench.py``: front ortho, ERT 1e-4, the bf16
-'default' resample tier).
+'default' resample tier). c4 recovers a 256^3 grid from 64 orbit views at
+256^2; it has no single camera (:func:`cameras` gives its views).
 """
 
 from __future__ import annotations
 
-from tpuvr_torch.config import LightingConfig, RenderConfig
+from tpuvr_torch.config import LightingConfig, RenderConfig, TrainConfig
 from tpuvr_torch.ref.camera import OrthoCamera
 
 
@@ -63,10 +65,34 @@ CONFIGS = {
         "render": RenderConfig(early_stop_eps=1e-4, precision="default"),
         "lighting": None,
     },
+    "c4": {
+        "name": "c4",
+        "grid_n": 256,
+        "res": 256,
+        "n_views": 64,
+        "camera": None,
+        "render": RenderConfig(early_stop_eps=0.0, use_occupancy=True),
+        "lighting": None,
+        "train": TrainConfig(lr=5e-2, steps=2000, views_per_batch=8,
+                             ckpt_every=200),
+        "mesh": "data",  # all local devices; one card runs without a mesh
+    },
 }
 
 
 def camera(cfg: dict, n: int | None = None, res: int | None = None):
     """The config's camera, optionally at a reduced grid size and
     resolution."""
+    if cfg["camera"] is None:
+        raise ValueError(f"{cfg['name']} has no single camera; use cameras()")
     return CAMERAS[cfg["camera"]](n or cfg["grid_n"], res or cfg["res"])
+
+
+def cameras(cfg: dict, n: int | None = None, res: int | None = None,
+            n_views: int | None = None):
+    """A training config's posed views: ``n_views`` orbit cameras,
+    optionally at a reduced grid size, resolution and count."""
+    from tpuvr_torch.io.synth import orbit_cameras
+
+    return orbit_cameras(n_views or cfg["n_views"], n or cfg["grid_n"],
+                         res=res or cfg["res"])

@@ -1,9 +1,9 @@
 """Hand-over of data from the JAX package.
 
-A renderer's parameters are its voxel grid, so a grid and a camera are
-all that cross over. Both arrive as plain data: a (Z, Y, X, 4) array
-(for example ``np.asarray`` of a JAX array) and a camera's dataclass
-fields.
+A renderer's parameters are its voxel grid, so a grid, a camera and a
+trainer's state are what cross over. They arrive as plain data: a
+(Z, Y, X, 4) array (for example ``np.asarray`` of a JAX array), a
+camera's dataclass fields, and the arrays of an Adam state.
 """
 
 from __future__ import annotations
@@ -44,3 +44,15 @@ def camera_from_fields(kind: str, **fields):
             v = tuple(float(x) for x in v)
         out[k] = v
     return _CAMERAS[kind](**out)
+
+
+def train_state_from_numpy(params, mu, nu, count, device=None):
+    """The JAX trainer's state -> this package's ``fit_grid`` state.
+
+    ``params``: raw (Z, Y, X, 4) parameters; ``mu``, ``nu``, ``count``:
+    the fields of optax's ``ScaleByAdamState`` (as numpy). Returns
+    (params, (mu, nu, count)) with the tensors on ``device`` (``None``
+    means the card), for ``fit_grid(params_init=...)`` or an Adam step.
+    """
+    params, mu, nu = (grid_from_numpy(a, device) for a in (params, mu, nu))
+    return params, (mu, nu, int(np.asarray(count)))

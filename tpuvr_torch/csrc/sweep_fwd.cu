@@ -17,6 +17,10 @@
 // a step whose position lies outside the tents' support (all taps read 0).
 // rgb and T stay in registers and are written once.
 //
+// Fused softplus (template flag SP, the trainer's raw-parameter layout-
+// resident mode): each density tap is softplus'd before resampling, in the
+// JAX kernels' form max(x, 0) + logf(1 + expf(-|x|)) (tent.cuh).
+//
 // Early ray termination: with eps > 0 each ray stops once its own T < eps.
 // The plain twin (and the JAX package) stop every ray when the global max T
 // falls below eps. For any one ray the two differ only by the contributions
@@ -42,7 +46,7 @@ namespace {
 constexpr int kBlockU = 32;
 constexpr int kBlockV = 8;
 
-template <int P>
+template <int P, bool SP>
 __global__ void __launch_bounds__(kBlockU * kBlockV)
 sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
                  const float* __restrict__ scal,  // (5, S): ay by ax bx en
@@ -89,8 +93,10 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const float* ch = sl + c * plane;
-      smp[c] = tent_sample<P>(ty, tx, [ch, X](int y, int x) {
-        return ch[static_cast<size_t>(y) * X + x];
+      const bool sp = SP && c == 0;
+      smp[c] = tent_sample<P>(ty, tx, [ch, X, sp](int y, int x) {
+        const float g = ch[static_cast<size_t>(y) * X + x];
+        return sp ? softplus(g) : g;
       });
     }
     const float sigma = fmaxf(smp[0], 0.0f);
@@ -108,7 +114,7 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
   trans[ray] = t;
 }
 
-template <int P>
+template <int P, bool SP>
 cudaError_t launch(const float* grid, const float* scal, const float* dt,
                    float* rgb, float* trans, int S, int Y, int X, int V, int U,
                    int reverse, float sigma_scale, float eps,
@@ -116,9 +122,29 @@ cudaError_t launch(const float* grid, const float* scal, const float* dt,
   const dim3 block(kBlockU, kBlockV);
   const dim3 blocks((U + kBlockU - 1) / kBlockU, (V + kBlockV - 1) / kBlockV);
   const size_t smem = 5 * static_cast<size_t>(S) * sizeof(float);
-  sweep_fwd_kernel<P><<<blocks, block, smem, stream>>>(
+  sweep_fwd_kernel<P, SP><<<blocks, block, smem, stream>>>(
       grid, scal, dt, rgb, trans, S, Y, X, V, U, reverse, sigma_scale, eps);
   return cudaGetLastError();
+}
+
+template <bool SP>
+int dispatch(const float* grid, const float* scal, const float* dt,
+             float* rgb, float* trans, int S, int Y, int X, int V, int U,
+             int reverse, float sigma_scale, float eps, int precision,
+             cudaStream_t stream) {
+  switch (precision) {
+    case kHighest:
+      return launch<kHighest, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
+                                  reverse, sigma_scale, eps, stream);
+    case kHigh:
+      return launch<kHigh, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
+                               reverse, sigma_scale, eps, stream);
+    case kDefault:
+      return launch<kDefault, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
+                                  reverse, sigma_scale, eps, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -130,19 +156,11 @@ extern "C" int tpuvr_sweep_fwd(const float* grid, const float* scal,
                                const float* dt, float* rgb, float* trans,
                                int S, int Y, int X, int V, int U, int reverse,
                                float sigma_scale, float eps, int precision,
-                               cudaStream_t stream) {
+                               int softplus, cudaStream_t stream) {
   using namespace tpuvr;
-  switch (precision) {
-    case kHighest:
-      return launch<kHighest>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                              reverse, sigma_scale, eps, stream);
-    case kHigh:
-      return launch<kHigh>(grid, scal, dt, rgb, trans, S, Y, X, V, U, reverse,
-                           sigma_scale, eps, stream);
-    case kDefault:
-      return launch<kDefault>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                              reverse, sigma_scale, eps, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return softplus
+             ? dispatch<true>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
+                              reverse, sigma_scale, eps, precision, stream)
+             : dispatch<false>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
+                               reverse, sigma_scale, eps, precision, stream);
 }

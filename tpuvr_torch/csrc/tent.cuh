@@ -1,4 +1,5 @@
-// Two-tap tent resampling shared by the sweep and tau-sweep kernels.
+// Two-tap tent resampling shared by the sweep and tau-sweep kernels and
+// their backwards.
 //
 // The JAX package resamples a slice with banded matrices,
 //   A[i, y] = max(0, 1 - |pos_y(i) - y|),  B[x, j] = max(0, 1 - |pos_x(j) - x|),
@@ -83,6 +84,71 @@ __device__ __forceinline__ float tent_sample(const Taps& ty, const Taps& tx,
   const float r0 = dot2<P>(ty.w0, g00, ty.w1, g10);
   const float r1 = dot2<P>(ty.w0, g01, ty.w1, g11);
   return dot2<P>(r0, tx.w0, r1, tx.w1);
+}
+
+// The fused density transform of the raw-parameter training path, in the
+// JAX kernels' overflow-free f32 form (not log1pf).
+__device__ __forceinline__ float softplus(float x) {
+  return __fadd_rn(fmaxf(x, 0.0f), logf(__fadd_rn(1.0f, expf(-fabsf(x)))));
+}
+
+// d softplus / dx, chained into the raw parameters' density gradient.
+__device__ __forceinline__ float sigmoid(float x) {
+  return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+}
+
+// A running sum of products a*b in tier P, summed in the order the terms
+// arrive: 'highest' in f32; 'default' with both factors rounded to bf16;
+// 'high' as the three sums a_hi b_hi, a_lo b_hi, a_hi b_lo, added at the
+// end in that order (the three-matmul split of the JAX package).
+template <int P>
+struct Acc {
+  float hh = 0.0f, lh = 0.0f, hl = 0.0f;
+  __device__ __forceinline__ void add(float a, float b) {
+    if (P == kHighest) {
+      hh = __fadd_rn(hh, __fmul_rn(a, b));
+    } else if (P == kDefault) {
+      hh = __fadd_rn(hh, __fmul_rn(round_bf16(a), round_bf16(b)));
+    } else {
+      const float ah = round_bf16(a), bh = round_bf16(b);
+      const float al = round_bf16(__fsub_rn(a, ah));
+      const float bl = round_bf16(__fsub_rn(b, bh));
+      hh = __fadd_rn(hh, __fmul_rn(ah, bh));
+      lh = __fadd_rn(lh, __fmul_rn(al, bh));
+      hl = __fadd_rn(hl, __fmul_rn(ah, bl));
+    }
+  }
+  __device__ __forceinline__ float value() const {
+    return P == kHigh ? __fadd_rn(__fadd_rn(hh, lh), hl) : hh;
+  }
+};
+
+// The tent weight of ray i at voxel c: max(0, 1 - |i*a + b - c|), with the
+// position formed by the same f32 operations as the forward's, so the
+// transposed resample uses the forward's weights bit for bit.
+__device__ __forceinline__ float tent_weight(int i, float a, float b, int c) {
+  const float pos = __fadd_rn(__fmul_rn(static_cast<float>(i), a), b);
+  return fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(pos, static_cast<float>(c)))));
+}
+
+// The rays [lo, hi] of n whose tent can reach voxel c: |i*a + b - c| < 1
+// solved for i, widened by one ray on each side for the rounding of the
+// position; lo > hi when none can.
+__device__ __forceinline__ void rays_reaching(int c, float a, float b, int n,
+                                              int* lo, int* hi) {
+  if (fabsf(a) < 1e-30f) {
+    const bool hit = fabsf(b - static_cast<float>(c)) < 1.0f;
+    *lo = hit ? 0 : 1;
+    *hi = hit ? n - 1 : 0;
+    return;
+  }
+  const float r0 = (static_cast<float>(c) - 1.0f - b) / a;
+  const float r1 = (static_cast<float>(c) + 1.0f - b) / a;
+  const float top = static_cast<float>(n) + 1.0f;
+  const float rmin = fminf(fmaxf(fminf(r0, r1), -2.0f), top);
+  const float rmax = fminf(fmaxf(fmaxf(r0, r1), -2.0f), top);
+  *lo = max(0, static_cast<int>(floorf(rmin)) - 1);
+  *hi = min(n - 1, static_cast<int>(ceilf(rmax)) + 1);
 }
 
 }  // namespace tpuvr

@@ -22,17 +22,3 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     return dev
 
-
-def cuda_grad_requested(t: torch.Tensor) -> bool:
-    """True where a CUDA kernel would be asked for a gradient it cannot
-    give: the kernels have no backward yet, and a ctypes launch is
-    invisible to autograd."""
-    return t.is_cuda and torch.is_grad_enabled() and t.requires_grad
-
-
-def check_no_cuda_grad(t: torch.Tensor, what: str) -> None:
-    if cuda_grad_requested(t):
-        raise NotImplementedError(
-            f"{what} on the card has no gradient: backward lands with the "
-            "training slice (run under torch.no_grad() or detach the input)"
-        )

@@ -25,7 +25,7 @@ def _entry():
     fn = _build.load("sweep_fwd").tpuvr_sweep_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -43,12 +43,14 @@ def _check(name, t, shape, device):
 def sweep_fwd(
     grid_sc, coeffs, enables, dt_map,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest",
+    precision="highest", softplus=False,
 ):
     """Forward sweep. Returns (rgb (3, V, U), trans (V, U)).
 
     grid_sc: (S, 4, Y, X); coeffs: (ay, by, ax, bx), four (S,) tensors in
     traversal order; enables: (S,) 0/1 in traversal order; dt_map: (V, U).
+    ``softplus``: the density channel holds raw parameters, softplus'd
+    per tap before resampling.
     With ``early_stop_eps`` > 0 the kernel stops each ray at its own
     T < eps; the twin stops all rays at the global max, and the two agree
     within eps * max|colour| (see the kernel source).
@@ -58,7 +60,7 @@ def sweep_fwd(
         return sweep_fwd_torch(
             grid_sc, coeffs, enables, dt_map, reverse=reverse,
             sigma_scale=sigma_scale, early_stop_eps=early_stop_eps,
-            precision=precision,
+            precision=precision, softplus=softplus,
         )
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
@@ -90,7 +92,7 @@ def sweep_fwd(
             rgb.data_ptr(), trans.data_ptr(),
             s, n_y, n_x, n_v, n_u, int(bool(reverse)),
             float(sigma_scale), float(early_stop_eps),
-            PRECISIONS.index(precision),
+            PRECISIONS.index(precision), int(bool(softplus)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

@@ -1,15 +1,28 @@
-"""Plain PyTorch forward sweep: the twin of the CUDA sweep kernel.
+"""Plain PyTorch forward and backward sweeps: the twins of the CUDA sweep
+kernels.
 
-It mirrors the JAX package's ``lax.scan`` twin step for step: per slice,
-the two tent operators A (V, Y) and B (X, U) resample the four channels
-as ``A @ S_c @ B``; density is rectified, gated by the slice enables and
-turned into ``att = exp(-s * sigma * dt)``; colour and transmittance
-composite front to back. Early ray termination checks the global maximum
-transmittance after every slice, as that twin does; no host sync is
-needed because the check is a masked ``where``.
+They mirror the JAX package's ``lax.scan`` twins step for step: per
+slice, the two tent operators A (V, Y) and B (X, U) resample the four
+channels as ``A @ S_c @ B``; density is rectified, gated by the slice
+enables and turned into ``att = exp(-s * sigma * dt)``; colour and
+transmittance composite front to back. Early ray termination checks the
+global maximum transmittance after every slice, as those twins do; no
+host sync is needed because the check is a masked ``where``.
 
-It runs wherever its tensors are. The CPU tests hold it against the JAX
-package, and the card's smoke run holds the CUDA kernel against it.
+The backward re-marches with O(1) state per ray (no stored per-slice
+activations): the transmittance T and the channel-contracted colour
+prefix ``q = sum_c dC_c * prefix_c``, with the constant suffix terms
+folded into ``dbias = sum_c dC_c * C_fin,c + dT * T_fin``, so that
+
+  d sigma_k = [sigma_raw > 0] * s * dt
+              * (sum_c dC_c T_k att_k c_k + q_k - dbias)
+  d c_k     = dC * T_k * (1 - att_k)
+
+and each slice's gradient is ``A^T dS B^T``, written once.
+
+They run wherever their tensors are. The CPU tests hold them against the
+JAX package, and the card's smoke run holds the CUDA kernels against
+them.
 """
 
 from __future__ import annotations
@@ -87,17 +100,27 @@ def resample(sl, mat_a, mat_b, precision: str):
     return sweep_dot(sweep_dot(mat_a, sl, precision), mat_b, precision)
 
 
+def softplus_slice(sl):
+    """softplus on the density channel (dim 0) of a (4, ...) slice, in the
+    overflow-free form of the JAX kernels: max(x, 0) + log(1 + e^-|x|)."""
+    raw = sl[:1]
+    sp = (torch.clamp_min(raw, 0.0)
+          + torch.log(1.0 + torch.exp(-torch.abs(raw))))
+    return torch.cat([sp, sl[1:]], dim=0)
+
+
 def sweep_fwd_torch(
     grid_sc, coeffs, enables, dt_map,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest",
+    precision="highest", softplus=False,
 ):
     """Forward sweep. Returns (rgb (3, V, U), trans (V, U)).
 
     grid_sc: (S, 4, Y, X) channels (sigma, r, g, b); coeffs: four (S,)
     tensors (ay, by, ax, bx) in traversal order; enables: (S,) 0/1 in
     traversal order; dt_map: (V, U). ``reverse`` visits grid slices in
-    descending order.
+    descending order. ``softplus``: the density channel holds raw
+    parameters, and each slice's density is softplus'd before resampling.
     """
     dtype = grid_sc.dtype
     s, _, n_y, n_x = grid_sc.shape
@@ -109,6 +132,8 @@ def sweep_fwd_torch(
     ert = early_stop_eps > 0.0
     for k in range(s):
         sl = grid_sc[s - 1 - k if reverse else k]
+        if softplus:
+            sl = softplus_slice(sl)
         go = enables[k] > 0
         if ert:
             go = go & (tmax >= early_stop_eps)
@@ -125,3 +150,82 @@ def sweep_fwd_torch(
         if ert:
             tmax = torch.where(go, torch.max(trans), tmax)
     return rgb, trans
+
+
+def sweep_dbias(d_color, c_final, d_trans, t_final):
+    """The backward's constant suffix plane (V, U):
+    ``sum_c dC_c * C_fin,c + dT * T_fin``."""
+    return (d_color * c_final).sum(dim=0) + d_trans * t_final
+
+
+def sweep_bwd_torch(
+    grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color, d_trans,
+    *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
+    precision="highest", softplus=False, carry=None,
+):
+    """Backward sweep: the (S, 4, Y, X) gradient of the forward's outputs'
+    cotangents ``d_color`` (3, V, U) and ``d_trans`` (V, U) with respect to
+    ``grid_sc`` (raw parameters on the density channel when ``softplus``).
+
+    ``c_final``/``t_final`` are the forward's outputs. ``carry``: optional
+    (trans0, q0) recompute state entering this call, for a slab of the
+    slices; with it the call returns ``(grad, (trans_fin, q_fin))``. The
+    identity carry is (ones, zeros).
+    """
+    dtype = grid_sc.dtype
+    dev = grid_sc.device
+    s = grid_sc.shape[0]
+    n_y, n_x = grid_sc.shape[2], grid_sc.shape[3]
+    n_v, n_u = dt_map.shape
+    ay, by, ax, bx = coeffs
+    dbias = sweep_dbias(d_color, c_final, d_trans, t_final)
+    if carry is None:
+        trans = torch.ones((n_v, n_u), dtype=dtype, device=dev)
+        q = torch.zeros((n_v, n_u), dtype=dtype, device=dev)
+    else:
+        trans, q = carry
+    tmax = torch.max(trans)
+    ert = early_stop_eps > 0.0
+    sdt = sigma_scale * dt_map
+    grads = []
+    for k in range(s):
+        raw = grid_sc[s - 1 - k if reverse else k]
+        sl = softplus_slice(raw) if softplus else raw
+        go = enables[k] > 0
+        if ert:
+            go = go & (tmax >= early_stop_eps)
+        mat_a, mat_b = _interp_matrices(
+            ay[k], by[k], ax[k], bx[k], n_v, n_y, n_x, n_u, dtype
+        )
+        smp = resample(sl, mat_a, mat_b, precision)
+        sig_raw = smp[0]
+        sigma = torch.clamp_min(sig_raw, 0.0)
+        att = torch.exp(-((sigma_scale * sigma) * dt_map))
+        att = torch.where(go, att, torch.ones_like(att))
+        w = trans * (1.0 - att)
+        dsig = -dbias
+        dsmp = []
+        for c in range(3):
+            q = q + (d_color[c] * w) * smp[c + 1]
+            dsig = dsig + d_color[c] * (trans * att) * smp[c + 1]
+            dsmp.append(d_color[c] * w)
+        dsig = (dsig + q) * sdt
+        dsig = torch.where(sig_raw > 0.0, dsig, torch.zeros_like(dsig))
+        dsmp = torch.stack([dsig] + dsmp)  # (4, V, U)
+        # A^T dS B^T: the row stage over v, then the column stage over u.
+        grad = sweep_dot(sweep_dot(mat_a.T, dsmp, precision), mat_b.T,
+                         precision)
+        grad = torch.where(go, grad, torch.zeros_like(grad))
+        if softplus:
+            sig = 1.0 / (1.0 + torch.exp(-raw[0]))
+            grad = torch.cat([grad[:1] * sig, grad[1:]], dim=0)
+        grads.append(grad)
+        trans = trans * att
+        if ert:
+            tmax = torch.where(go, torch.max(trans), tmax)
+    if reverse:
+        grads = grads[::-1]
+    grad = torch.stack(grads)
+    if carry is None:
+        return grad
+    return grad, (trans, q)

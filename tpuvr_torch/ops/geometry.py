@@ -238,6 +238,22 @@ def ray_dt(plan: SweepPlan, dtype=torch.float32, device="cpu"):
     return torch.as_tensor(dt, dtype=dtype, device=device)
 
 
+def _bilinear(g, x, y, n_rows: int, n_cols: int):
+    """The 4-tap bilinear gather of an (n_rows, n_cols, C) image at
+    fractional (row y, column x), with the taps clamped into the image."""
+    x0 = torch.clamp(torch.floor(x), 0, n_cols - 2)
+    y0 = torch.clamp(torch.floor(y), 0, n_rows - 2)
+    fx = torch.clamp(x - x0, 0.0, 1.0)
+    fy = torch.clamp(y - y0, 0.0, 1.0)
+    x0, y0 = x0.long(), y0.long()
+    return (
+        g[y0, x0] * ((1 - fy) * (1 - fx))[..., None]
+        + g[y0, x0 + 1] * ((1 - fy) * fx)[..., None]
+        + g[y0 + 1, x0] * (fy * (1 - fx))[..., None]
+        + g[y0 + 1, x0 + 1] * (fy * fx)[..., None]
+    )
+
+
 def warp_to_pixels(intermediate, plan: SweepPlan,
                    uv_pixel: Optional[np.ndarray]):
     """Bilinearly resample the (n_v, n_u, C) intermediate image at the
@@ -250,15 +266,62 @@ def warp_to_pixels(intermediate, plan: SweepPlan,
                           device=intermediate.device)
     x = (uvp[..., 0] - u0) / du
     y = (uvp[..., 1] - v0) / dv
-    x0 = torch.clamp(torch.floor(x), 0, plan.n_u - 2)
-    y0 = torch.clamp(torch.floor(y), 0, plan.n_v - 2)
-    fx = torch.clamp(x - x0, 0.0, 1.0)
-    fy = torch.clamp(y - y0, 0.0, 1.0)
-    x0, y0 = x0.long(), y0.long()
-    g = intermediate
-    return (
-        g[y0, x0] * ((1 - fy) * (1 - fx))[..., None]
-        + g[y0, x0 + 1] * ((1 - fy) * fx)[..., None]
-        + g[y0 + 1, x0] * (fy * (1 - fx))[..., None]
-        + g[y0 + 1, x0 + 1] * (fy * fx)[..., None]
-    )
+    return _bilinear(intermediate, x, y, plan.n_v, plan.n_u)
+
+
+def view_geometry(cam, grid_shape, dtype=torch.float32):
+    """One view's sweep geometry as CPU tensors, for the training step.
+
+    Returns (axis, reverse, geom, band) with geom = {
+      'coeffs': (4, S) [ay, by, ax, bx] in traversal order,
+      'dt': (V, U),
+      'lattice': (4,) [u0, du, v0, dv],
+      'uv': (H, W, 2) pixel base-plane coordinates (always present: for a
+            separable camera they are the lattice points themselves),
+      'valid': (S,) 0/1 visible planes in traversal order,
+    } and ``band`` from :func:`band_bounds`.
+    """
+    from tpuvr_torch.ref.camera import dominant_axis
+
+    axis = dominant_axis(cam)
+    plan, uv_pixel = plan_sweep(cam, grid_shape, axis)
+    if uv_pixel is None:
+        u0, du, v0, dv = plan.lattice
+        uu, vv = np.meshgrid(u0 + du * np.arange(plan.n_u),
+                             v0 + dv * np.arange(plan.n_v))
+        uv_pixel = np.stack([uu, vv], axis=-1)
+    geom = {
+        "coeffs": torch.stack(slice_coeffs(plan, dtype)),
+        "dt": ray_dt(plan, dtype),
+        "lattice": torch.as_tensor(plan.lattice, dtype=dtype),
+        "uv": torch.as_tensor(uv_pixel, dtype=dtype),
+        "valid": plan_valid_mask(plan, dtype),
+    }
+    return axis, plan.reverse, geom, band_bounds(plan)
+
+
+def warp_to_pixels_dynamic(intermediate, lattice, uv_pixel):
+    """:func:`warp_to_pixels` with the lattice as a (4,) tensor and the
+    pixel base points as an (H, W, 2) tensor (the training step's per-view
+    geometry is data)."""
+    u0, du, v0, dv = lattice[0], lattice[1], lattice[2], lattice[3]
+    x = (uv_pixel[..., 0] - u0) / du
+    y = (uv_pixel[..., 1] - v0) / dv
+    return _bilinear(intermediate, x, y, intermediate.shape[0],
+                     intermediate.shape[1])
+
+
+def warp_to_pixels_band(inter_band, lattice, uv_pixel, r0):
+    """Pixel warp from the intermediate rows [r0, r0 + rows) only (the
+    ``TrainConfig.rays_per_view`` row band).
+
+    Returns (img (H, W, C), mask (H, W) bool): ``img`` is valid where
+    ``mask``, the pixels whose bilinear support lies inside the band.
+    """
+    rows, n_u = inter_band.shape[0], inter_band.shape[1]
+    u0, du, v0, dv = lattice[0], lattice[1], lattice[2], lattice[3]
+    x = (uv_pixel[..., 0] - u0) / du
+    y = (uv_pixel[..., 1] - v0) / dv
+    yb = y - float(r0)
+    mask = (yb >= 0.0) & (yb <= rows - 1)
+    return _bilinear(inter_band, x, yb, rows, n_u), mask

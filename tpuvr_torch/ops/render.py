@@ -41,6 +41,18 @@ def sweep_layout_to_grid(grid_sc, axis: int):
     return grid_sc.permute(0, 2, 3, 1).permute(GRID_PERM[axis]).contiguous()
 
 
+def slice_enables(grid_sc, reverse: bool, use_occupancy: bool):
+    """Per-traversal-slice 0/1 flags: a slice whose maximum density is
+    <= 0 contributes nothing and is skipped (lossless). No gradient flows
+    through them."""
+    s = grid_sc.shape[0]
+    if not use_occupancy:
+        return torch.ones(s, dtype=grid_sc.dtype, device=grid_sc.device)
+    slice_max = torch.amax(grid_sc[:, 0].detach(), dim=(1, 2))
+    enables = (slice_max > 0.0).to(grid_sc.dtype)
+    return enables.flip(0) if reverse else enables
+
+
 def _grid_shape_from_sweep(axis: int, gsc_shape):
     """(S, 4, Y', X') -> the (Z, Y, X, 4) shape it was laid out from."""
     s, _, yp, xp = gsc_shape

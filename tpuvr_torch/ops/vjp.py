@@ -1,17 +1,20 @@
-"""The sweep op and row chunking.
+"""The differentiable sweep op and row chunking.
 
-Forward only in this package so far: on the card, a grid that asks for a
-gradient is refused (``tpuvr_torch.device.check_no_cuda_grad``); on the
-CPU the plain twin is ordinary autograd-able PyTorch.
+``sweep_op`` binds the forward sweep and its recompute backward as a
+``torch.autograd.Function``. Its residuals are the inputs plus the final
+(rgb, T), with no per-slice activations; gradients flow to the grid only,
+and camera geometry (coeffs, dt) and the occupancy enables get none. With
+``impl='cuda'`` both directions are the CUDA kernels; with ``impl='torch'``
+both are the plain twins, which run wherever their tensors are.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpuvr_torch.device import check_no_cuda_grad
 from tpuvr_torch.kernels.sweep import sweep_fwd
-from tpuvr_torch.kernels.sweep_torch import sweep_fwd_torch
+from tpuvr_torch.kernels.sweep_bwd import sweep_bwd
+from tpuvr_torch.kernels.sweep_torch import sweep_bwd_torch, sweep_fwd_torch
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -25,28 +28,106 @@ def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
     return impl
 
 
+class _Sweep(torch.autograd.Function):
+    """(grid_sc, ay, by, ax, bx, enables, dt_map) -> (rgb, T); the
+    coefficients travel as separate tensors so autograd sees each one."""
+
+    @staticmethod
+    def forward(ctx, grid_sc, ay, by, ax, bx, enables, dt_map, spec):
+        fwd, bwd, kw, bwd_chunks = spec
+        rgb, trans = fwd(grid_sc, (ay, by, ax, bx), enables, dt_map, **kw)
+        ctx.save_for_backward(grid_sc, ay, by, ax, bx, enables, dt_map,
+                              rgb, trans)
+        ctx.spec = spec
+        return rgb, trans
+
+    @staticmethod
+    def backward(ctx, d_rgb, d_trans):
+        grid_sc, ay, by, ax, bx, enables, dt_map, rgb, trans = (
+            ctx.saved_tensors)
+        _, bwd, kw, bwd_chunks = ctx.spec
+        dgrid = None
+        if ctx.needs_input_grad[0]:
+            args = (grid_sc, (ay, by, ax, bx), enables, dt_map, rgb, trans,
+                    d_rgb.contiguous(), d_trans.contiguous())
+            if bwd_chunks > 1:
+                dgrid = _chunked_bwd(bwd, bwd_chunks, *args, kw)
+            else:
+                dgrid = bwd(*args, **kw)
+        return dgrid, None, None, None, None, None, None, None
+
+
 def sweep_op(
     reverse: bool,
     sigma_scale: float,
     early_stop_eps: float,
     impl: str,
     precision: str = "highest",
+    *,
+    views: int = 1,
+    bwd_chunks: int = 1,
+    softplus: bool = False,
+    ring: tuple | None = None,
 ):
-    """(grid_sc, coeffs, enables, dt_map) -> (rgb (3, V, U), T (V, U)).
+    """Differentiable sweep: (grid_sc, coeffs, enables, dt_map) ->
+    (rgb (3, V, U), T (V, U)).
 
-    ``impl`` 'cuda' runs the CUDA kernel, 'torch' the plain twin.
+    ``impl`` 'cuda' runs the CUDA kernels, 'torch' the plain twins.
+    ``softplus``: the grid's density channel holds raw parameters; the
+    sweeps apply softplus per slice and the gradient is with respect to
+    the raw parameters. ``bwd_chunks`` > 1 runs the backward slab by slab
+    along the slice axis, threading the (trans, q) recompute carry.
     """
-    fwd = sweep_fwd if impl == "cuda" else sweep_fwd_torch
+    if views != 1:
+        raise NotImplementedError("view-batched sweeps (views > 1) land "
+                                  "with slice 3 of the port (B3, B4)")
+    if ring is not None:
+        raise NotImplementedError("the ring backward lands with the "
+                                  "multi-GPU slice of the port (B11)")
+    if impl == "cuda":
+        fwd, bwd = sweep_fwd, sweep_bwd
+    elif impl == "torch":
+        fwd, bwd = sweep_fwd_torch, sweep_bwd_torch
+    else:
+        raise ValueError(f"unknown sweep impl: {impl!r}")
+    kw = dict(reverse=reverse, sigma_scale=sigma_scale,
+              early_stop_eps=early_stop_eps, precision=precision,
+              softplus=softplus)
+    spec = (fwd, bwd, kw, int(bwd_chunks))
 
     def op(grid_sc, coeffs, enables, dt_map):
-        check_no_cuda_grad(grid_sc, "sweep_op")
-        return fwd(
-            grid_sc, coeffs, enables, dt_map, reverse=reverse,
-            sigma_scale=sigma_scale, early_stop_eps=early_stop_eps,
-            precision=precision,
-        )
+        return _Sweep.apply(grid_sc, *coeffs, enables, dt_map, spec)
 
     return op
+
+
+def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
+                 trans, d_rgb, d_trans, kw):
+    """Slab-chunked backward: chunks follow traversal order (chunk 0 holds
+    the first slices the rays hit), so the (trans, q) carry threads
+    forward; the slabs are put back in grid order for ``reverse``."""
+    s = grid_sc.shape[0]
+    if s % n_chunks:
+        raise ValueError(f"bwd_chunks {n_chunks} must divide slices {s}")
+    sc = s // n_chunks
+    n_v, n_u = dt_map.shape
+    carry = (torch.ones((n_v, n_u), dtype=grid_sc.dtype,
+                        device=grid_sc.device),
+             torch.zeros((n_v, n_u), dtype=grid_sc.dtype,
+                         device=grid_sc.device))
+    parts = []
+    for g in range(n_chunks):
+        tr = slice(g * sc, (g + 1) * sc)  # traversal-step range
+        g_lo = (s - (g + 1) * sc) if kw["reverse"] else g * sc
+        grad_g, carry = bwd_fn(
+            grid_sc[g_lo:g_lo + sc], tuple(c[tr] for c in coeffs),
+            enables[tr], dt_map, rgb, trans, d_rgb, d_trans,
+            carry=carry, **kw,
+        )
+        parts.append(grad_g)
+    if kw["reverse"]:
+        parts = parts[::-1]
+    return torch.cat(parts, dim=0)
 
 
 def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
@@ -55,7 +136,8 @@ def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
     Row ``r0 + v`` of the full image samples at ``(r0 + v)*ay + by``, so a
     chunk is exactly the full op with ``by := by + r0*ay``. Per-chunk early
     termination is at least as aggressive as whole-image termination and
-    keeps the same error bound. ``max_rows`` None disables chunking.
+    keeps the same error bound. ``max_rows`` None disables chunking. Each
+    chunk is one call of ``op``, so gradients flow through every chunk.
     """
     n_v = dt_map.shape[0]
     if max_rows is None or n_v <= max_rows:

@@ -1,0 +1,489 @@
+"""Inverse rendering: recover a voxel grid from posed views.
+
+``fit_grid`` runs Adam on the grid against the L2 image loss of posed
+views, on one device:
+
+- views are grouped by their sweep signature (axis, reverse); the
+  per-view geometry is data (``tpuvr_torch.ops.geometry.view_geometry``),
+  staged on the device once per group;
+- each step renders a minibatch of one group's views view by view through
+  the differentiable sweep op (forward and backward kernels on the card),
+  warps each to pixels and updates the grid; groups rotate per step, or
+  per block of ``steps_per_call`` steps;
+- density is parameterized through softplus by default. In the fused mode
+  the training state (params and Adam moments) stays in the current
+  group's sweep layout and the kernels apply softplus per slice, so no
+  softplus'd or transposed grid is materialized per step; the state is
+  re-laid out when the group changes.
+
+The minibatch draws follow the JAX package's ``fit_grid`` exactly (the
+same numpy generator and calls), so the two trainers see the same views.
+Checkpoints (``tpuvr_torch.train.ckpt``) and metrics JSONL go to the run
+directory. Multi-device training (a mesh) and the view-batched sweep are
+later slices of the port and raise here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpuvr_torch.config import RenderConfig, TrainConfig
+from tpuvr_torch.device import resolve_device
+from tpuvr_torch.ops.geometry import (
+    view_geometry,
+    warp_to_pixels_band,
+    warp_to_pixels_dynamic,
+)
+from tpuvr_torch.ops.render import (
+    grid_to_sweep_layout,
+    prepare_grid,
+    render_prepared,
+    slice_enables,
+    sweep_layout_to_grid,
+)
+from tpuvr_torch.ops.vjp import resolve_impl, sweep_op
+from tpuvr_torch.ref.camera import dominant_axis
+from tpuvr_torch.train.ckpt import Checkpointer
+from tpuvr_torch.utils.metrics import MetricsLogger, psnr
+
+log = logging.getLogger("tpuvr_torch")
+
+_SOFTPLUS_INV_001 = float(np.log(np.expm1(0.01)))  # raw init -> sigma 0.01
+
+
+def params_to_grid(params, density_softplus: bool):
+    """Map raw optimization parameters (Z, Y, X, 4) to the rendered grid."""
+    if not density_softplus:
+        return params
+    sigma = torch.nn.functional.softplus(params[..., :1])
+    return torch.cat([sigma, params[..., 1:]], dim=-1)
+
+
+def init_params(grid_shape, density_softplus: bool, dtype=torch.float32,
+                device=None):
+    """Raw parameters: density 0.01 (through softplus) or 0, emission 0.5."""
+    params = torch.zeros(grid_shape, dtype=dtype,
+                         device=resolve_device(device))
+    if density_softplus:
+        params[..., 0] = _SOFTPLUS_INV_001
+    params[..., 1:] = 0.5
+    return params
+
+
+# Adam with optax's rule (``optax.adam``): the state is (mu, nu, count).
+
+def adam_init(params):
+    return (torch.zeros_like(params), torch.zeros_like(params), 0)
+
+
+def adam_update(grads, state, lr: float, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8):
+    """Returns (updates, new_state); apply with ``params + updates``.
+
+    Moments are exponential averages, bias-corrected by 1 - b**count
+    (formed in float64, then rounded to the moments' dtype), and the step
+    is -lr * mu_hat / (sqrt(nu_hat) + eps)."""
+    mu, nu, count = state
+    mu = (1 - b1) * grads + b1 * mu
+    nu = (1 - b2) * (grads * grads) + b2 * nu
+    count = count + 1
+    mu_hat = mu / float(np.float32(1 - b1**count))
+    nu_hat = nu / float(np.float32(1 - b2**count))
+    updates = -lr * (mu_hat / (torch.sqrt(nu_hat) + eps))
+    return updates, (mu, nu, count)
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr)`` over plain tensors."""
+
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params):
+        return adam_init(params)
+
+    def update(self, grads, state):
+        return adam_update(grads, state, self.lr, self.b1, self.b2, self.eps)
+
+
+def group_views(cams, grid_shape):
+    """Group cameras by sweep signature and stack their geometry (on the
+    host).
+
+    Returns {(axis, reverse): (view_indices, stacked_geom, band)} with
+    ``band`` the group's (max |ay|, max |ax|, min |ay|, min |ax|). The JAX
+    package also keys on the banded kernels' tile class and plans a tiled
+    pixel warp per group; this port has neither (its sweep kernels have no
+    tile classes, and its warp is the 4-tap gather), so it groups by
+    (axis, reverse) alone.
+    """
+    groups: Dict[Tuple[int, bool], Tuple[List, List, List]] = {}
+    for i, cam in enumerate(cams):
+        axis, reverse, geom, band = view_geometry(cam, grid_shape)
+        idxs, geoms, bands = groups.setdefault((axis, reverse), ([], [], []))
+        idxs.append(i)
+        geoms.append(geom)
+        bands.append(band)
+    out = {}
+    for key, (idxs, geoms, bands) in groups.items():
+        band = (max(b[0] for b in bands), max(b[1] for b in bands),
+                min(b[2] for b in bands), min(b[3] for b in bands))
+        stacked = {k: torch.stack([g[k] for g in geoms]) for k in geoms[0]}
+        out[key] = (idxs, stacked, band)
+    return out
+
+
+def band_rows(rays_per_view: Optional[int], n_v: int,
+              n_u: int) -> Optional[int]:
+    """Row-band height for ``rays_per_view`` ray subsampling: about that
+    many rays per view, rounded up to a multiple of 128 (8 when V is not a
+    multiple of 128); None means every row."""
+    if rays_per_view is None:
+        return None
+    q = 128 if n_v % 128 == 0 else 8
+    rows = -(-rays_per_view // n_u)
+    rows = min(n_v, -(-rows // q) * q)
+    return None if rows >= n_v else rows
+
+
+def _slice_band(geom, r0s, rows: int):
+    """Row-band view of stacked geometry: by shifted by r0 rows, dt cut to
+    the band, per view."""
+    coeffs = geom["coeffs"]  # (n_views, 4, S)
+    r0 = torch.as_tensor(r0s, dtype=coeffs.dtype, device=coeffs.device)
+    by = coeffs[:, 1] + r0[:, None] * coeffs[:, 0]
+    coeffs = torch.stack([coeffs[:, 0], by, coeffs[:, 2], coeffs[:, 3]], 1)
+    dt = torch.stack([d[int(r):int(r) + rows]
+                      for d, r in zip(geom["dt"], r0s)])
+    return dict(geom, coeffs=coeffs, dt=dt)
+
+
+def make_train_step(
+    key,
+    n_views: int,
+    opt,
+    render_cfg: RenderConfig,
+    density_softplus: bool,
+    impl: Optional[str],
+    rows: Optional[int] = None,
+    kernel_softplus: bool = False,
+    lighting=None,
+):
+    """One train step for a view group (axis, reverse), on one device.
+
+    Returns ``step(params, opt_state, geom_all, targets_all, pick, r0s) ->
+    (params, opt_state, loss)``: ``pick`` (n_views,) indexes the group's
+    stacked geometry and targets, ``r0s`` (n_views,) are the row-band
+    offsets (used when ``rows`` is set). The loss is the mean over the
+    views of each view's image MSE (over the band's pixels with ``rows``).
+
+    ``kernel_softplus``: ``params`` are the raw parameters already in this
+    group's (S, 4, Y, X) sweep layout, and the kernels apply softplus per
+    slice (every slice is then occupied). ``lighting``: bake the sky light
+    volume from the current density and multiply it into emission before
+    the sweep (with ``lighting.detach=False`` the gradient flows through
+    the shadows too).
+    """
+    axis, reverse = key
+    lit = lighting is not None and lighting.mode != "none"
+    if kernel_softplus and (lit or not density_softplus):
+        raise ValueError("the fused mode (kernel_softplus) needs softplus "
+                         "density and no lighting: the bake needs the "
+                         "canonical grid")
+
+    def grid_and_enables(params):
+        if kernel_softplus:
+            return params, params.new_ones(params.shape[0])
+        grid = params_to_grid(params, density_softplus)
+        if lit:
+            from tpuvr_torch.ops.lighting import apply_lighting
+
+            grid = apply_lighting(grid, lighting, render_cfg.precision)
+        grid_sc = grid_to_sweep_layout(grid, axis)
+        return grid_sc, slice_enables(grid_sc, reverse,
+                                      render_cfg.use_occupancy)
+
+    def view_loss(op, grid_sc, enables, geom_i, target, r0):
+        c = geom_i["coeffs"]
+        rgb, trans = op(grid_sc, (c[0], c[1], c[2], c[3]),
+                        enables * geom_i["valid"], geom_i["dt"])
+        inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+        if rows is None:
+            img = warp_to_pixels_dynamic(inter, geom_i["lattice"],
+                                         geom_i["uv"])[..., :3]
+            return torch.mean((img - target) ** 2)
+        img, mask = warp_to_pixels_band(inter, geom_i["lattice"],
+                                        geom_i["uv"], r0)
+        err = torch.mean((img[..., :3] - target) ** 2, dim=-1)
+        mask = mask.to(err.dtype)
+        return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+    def step(params, opt_state, geom_all, targets_all, pick, r0s):
+        op = sweep_op(reverse, render_cfg.sigma_scale,
+                      render_cfg.early_stop_eps, resolve_impl(impl, params),
+                      render_cfg.precision, softplus=kernel_softplus)
+        pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
+                                 device=params.device)
+        geom = {k: v[pick_t] for k, v in geom_all.items()}
+        targets = targets_all[pick_t]
+        if rows is not None:
+            geom = _slice_band(geom, r0s, rows)
+        p = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            grid_sc, enables = grid_and_enables(p)
+            total = 0.0
+            for i in range(n_views):
+                geom_i = {k: v[i] for k, v in geom.items()}
+                total = total + view_loss(op, grid_sc, enables, geom_i,
+                                          targets[i], r0s[i])
+            loss = total / n_views
+            (grads,) = torch.autograd.grad(loss, p)
+        updates, opt_state = opt.update(grads, opt_state)
+        return params + updates, opt_state, loss.detach()
+
+    return step
+
+
+def _as_tensor(x):
+    """A float32 tensor of numpy data or of a tensor on any device."""
+    return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
+                           dtype=torch.float32)
+
+
+def _relayout(params, opt_state, src, dst):
+    """Move the training state between layouts: None is the canonical
+    (Z, Y, X, 4), an axis that axis' (S, 4, Y, X) sweep layout."""
+    if src == dst:
+        return params, opt_state
+
+    def cv(x):
+        if not torch.is_tensor(x) or x.dim() != 4:
+            return x  # Adam's count
+        g = sweep_layout_to_grid(x, src) if src is not None else x
+        return grid_to_sweep_layout(g, dst) if dst is not None else g
+
+    return cv(params), tuple(cv(x) for x in opt_state)
+
+
+def fit_grid(
+    targets,
+    cams,
+    grid_shape,
+    cfg: TrainConfig = TrainConfig(),
+    render_cfg: RenderConfig = RenderConfig(),
+    mesh=None,
+    impl: Optional[str] = None,
+    run_dir: Optional[str] = None,
+    resume: bool = False,
+    grad_ring: bool = False,
+    lighting=None,
+    params_init=None,
+    opt=None,
+    fused: Optional[bool] = None,
+    device=None,
+):
+    """Optimize a voxel grid to reproduce ``targets`` from ``cams``.
+
+    Args:
+      targets: (N, H, W, 3) posed view images (numpy or tensor).
+      cams: list of N cameras.
+      grid_shape: (Z, Y, X, 4) of the grid to recover.
+      cfg/render_cfg: training and renderer configs.
+      mesh, grad_ring: multi-GPU options of the JAX package; either
+        raises NotImplementedError (so does its ``bwd_chunks``, which
+        takes effect only on a mesh there and is not accepted here).
+      impl: sweep implementation, None for the device's ('cuda' on the
+        card, 'torch' on the CPU); 'torch' on the card runs the plain
+        twins, for comparison only.
+      run_dir: metrics/checkpoint directory (default ``cfg.ckpt_dir``).
+      resume: continue from the latest checkpoint in ``run_dir``.
+      lighting: optional LightingConfig for lit inverse rendering; each
+        step bakes the light volume from the current density (turns the
+        fused mode off).
+      params_init: optional (Z, Y, X, 4) raw-parameter warm start.
+      opt: optimizer with ``init(params)`` and ``update(grads, state)``
+        (default ``Adam(cfg.lr)``).
+      fused: keep the state in sweep layout with the kernels' softplus;
+        None chooses as the JAX package does: with softplus density, no
+        lighting, and ``steps_per_call`` > 1 or a single view group.
+      device: None for the card, or "cpu".
+
+    Returns:
+      (grid (rendered space), params, history) with ``history["loss"]``
+      per step and ``history["step_ms"]``, the time from the end of one
+      step to the end of the next (CUDA events on the card; the first
+      entry runs from the start of the loop).
+    """
+    if mesh is not None or grad_ring:
+        raise NotImplementedError(
+            "multi-GPU training (a mesh, and grad_ring/bwd_chunks on it) "
+            "lands with the port's distributed slice (tpuvr_torch/dist/, "
+            "B11)")
+    dev = resolve_device(device)
+    run_dir = run_dir or cfg.ckpt_dir
+    metrics = MetricsLogger(run_dir)
+    opt = opt if opt is not None else Adam(cfg.lr)
+    if params_init is not None:
+        params = torch.as_tensor(params_init, dtype=torch.float32).to(
+            dev, copy=True)
+    else:
+        params = init_params(grid_shape, cfg.density_softplus, device=dev)
+    opt_state = opt.init(params)
+    start_step = 0
+
+    ckpt = Checkpointer(f"{run_dir}/ckpt") if cfg.ckpt_every else None
+    if resume and ckpt is not None and ckpt.latest_step() is not None:
+        step_no, state = ckpt.restore(
+            {"params": params, "opt_state": opt_state})
+        params, opt_state = state["params"], state["opt_state"]
+        start_step = step_no + 1
+        log.info("resumed from checkpoint at step %d", step_no)
+
+    # Geometry is built on the host, then each group's stacked tensors
+    # move to the device once.
+    groups = {
+        k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band)
+        for k, (idxs, stacked, band) in group_views(cams, grid_shape).items()
+    }
+    group_keys = sorted(groups)
+    lit = lighting is not None and lighting.mode != "none"
+    K = max(int(cfg.steps_per_call), 1)
+    if fused is None:
+        fused = (cfg.density_softplus and not lit
+                 and (K > 1 or len(group_keys) == 1))
+    steps_fns, rows_by_key = {}, {}
+    for key in group_keys:
+        idxs, stacked, _ = groups[key]
+        n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
+        rows = band_rows(cfg.rays_per_view, n_v, n_u)
+        rows_by_key[key] = (rows, n_v)
+        steps_fns[key] = make_train_step(
+            key, min(cfg.views_per_batch, len(idxs)), opt, render_cfg,
+            cfg.density_softplus, impl, rows=rows, kernel_softplus=fused,
+            lighting=lighting,
+        )
+    targets = _as_tensor(targets)
+    targets_by_key = {
+        k: targets[torch.as_tensor(groups[k][0], device=targets.device)].to(
+            dev) for k in group_keys
+    }
+
+    rng = np.random.default_rng(cfg.seed + start_step)
+    history = {"loss": [], "step_ms": []}
+    pending = None  # (step numbers, key, device losses) awaiting readback
+
+    def drain(rec):
+        step_is, key_i, losses = rec
+        for step_i, loss in zip(step_is, losses):
+            history["loss"].append(float(loss))
+            metrics.write(step_i, loss=float(loss), group=str(key_i))
+
+    def draw(key, size=None):
+        """View picks and row offsets, as the JAX package draws them."""
+        idxs = groups[key][0]
+        k_views = min(cfg.views_per_batch, len(idxs))
+        shape = (k_views,) if size is None else (size, k_views)
+        pick = np.stack([
+            rng.choice(len(idxs), size=k_views, replace=False)
+            for _ in range(size or 1)
+        ]).reshape(shape)
+        rows, n_v = rows_by_key[key]
+        if rows is None:
+            r0s = np.zeros(shape, np.int32)
+        else:
+            r0s = rng.integers(0, (n_v - rows) // 8 + 1,
+                               size=shape).astype(np.int32) * 8
+        return pick, r0s
+
+    on_card = dev.type == "cuda"
+
+    def mark():
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    marks = [mark()]
+    step_no = start_step
+    # A resumed run starts from the block its start_step falls in, so the
+    # groups (and the generator's draws) come in the uninterrupted order.
+    blk = start_step // K
+    cur_layout = None  # fused mode: the axis whose layout the state is in
+    while step_no < cfg.steps:
+        if K == 1:
+            key = group_keys[step_no % len(group_keys)]
+            n_done = 1
+            picks, r0s_all = draw(key)
+            picks, r0s_all = picks[None], r0s_all[None]
+        else:
+            key = group_keys[blk % len(group_keys)]
+            n_done = min(K, cfg.steps - step_no)
+            picks, r0s_all = draw(key, size=n_done)
+            blk += 1
+        if fused and cur_layout != key[0]:
+            params, opt_state = _relayout(params, opt_state, cur_layout,
+                                          key[0])
+            cur_layout = key[0]
+        losses = []
+        for pick, r0s in zip(picks, r0s_all):
+            params, opt_state, loss = steps_fns[key](
+                params, opt_state, groups[key][1], targets_by_key[key],
+                pick, r0s)
+            losses.append(loss)
+            marks.append(mark())
+        # Read the previous block's losses back only now, so the host does
+        # not wait on the device before queueing this block.
+        if pending is not None:
+            drain(pending)
+        pending = (list(range(step_no, step_no + n_done)), key, losses)
+        next_step = step_no + n_done
+        if ckpt is not None and (next_step % cfg.ckpt_every < n_done
+                                 or next_step >= cfg.steps):
+            p_c, o_c = (_relayout(params, opt_state, cur_layout, None)
+                        if fused else (params, opt_state))
+            ckpt.save(next_step - 1, {"params": p_c, "opt_state": o_c},
+                      cast_bf16=cfg.ckpt_bf16)
+        step_no = next_step
+    if pending is not None:
+        drain(pending)
+    if on_card:
+        marks[-1].synchronize()
+        history["step_ms"] = [a.elapsed_time(b)
+                              for a, b in zip(marks, marks[1:])]
+    else:
+        history["step_ms"] = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    if fused and cur_layout is not None:
+        params, opt_state = _relayout(params, opt_state, cur_layout, None)
+    return params_to_grid(params, cfg.density_softplus), params, history
+
+
+def render_all_views(grid, cams, render_cfg: RenderConfig = RenderConfig(),
+                     lighting=None, device=None):
+    """Render every camera: one ``prepare_grid`` (with the light bake) for
+    all the views' sweep axes, then ``render_prepared`` per view. Returns
+    (N, H, W, 3)."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        grid = torch.as_tensor(grid, device=dev)
+        axes = sorted({dominant_axis(cam) for cam in cams})
+        prep = prepare_grid(grid, axes=axes, lighting=lighting,
+                            precision=render_cfg.precision, device=dev)
+        return torch.stack([render_prepared(prep, cam, render_cfg,
+                                            device=dev)[0] for cam in cams])
+
+
+def evaluate_psnr(grid, cams, targets, render_cfg: RenderConfig =
+                  RenderConfig(), lighting=None, device=None):
+    """PSNR (dB) of every view rendered from ``grid`` against ``targets``."""
+    preds = render_all_views(grid, cams, render_cfg, lighting, device)
+    return float(psnr(preds, _as_tensor(targets).to(preds.device)))
