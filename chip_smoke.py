@@ -10,17 +10,21 @@ Phases, in order; any failure raises and exits non-zero:
      one nvcc per source, all at once;
   2. hold each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (the backward sweep also against autograd of a
-     per-ray-terminating plain forward at eps > 0), and the whole render
-     path against device="cpu" on a small input;
+     per-ray-terminating plain forward at eps > 0; the sweep pair over the
+     c4 minibatch, 8 views of one c4 group, also against the same kernels
+     run view by view), and the whole render path against device="cpu" on
+     a small input;
   3. the render path at full size through the entry points (device=None):
      c1, c2 and the 256^3 @ 512^2 headline frame as frame loops, and c3 lit
      (16-direction light bake, then frames), timed with CUDA events;
   4. the training path: c4 at full width (256^3 from 64 views at 256^2,
      8 views a step) through fit_grid, as configured and in the fused
-     layout-resident mode, with one step held against the same step through
-     the plain versions; then a lit fit_grid with differentiable shadows at
-     128^3. Before each main path the kernels' launch counts are set to 0,
-     and they are read after it;
+     layout-resident mode, each with the view-batched sweep (the default)
+     and view by view (TPUVR_VIEW_BATCH=0); one batched step held against
+     the same step through the plain versions and against the view-by-view
+     step; then a lit fit_grid with differentiable shadows at 128^3. Before
+     each main path the kernels' launch counts are set to 0, and they are
+     read after it;
   5. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the card's name and power limit from nvidia-smi, and last
      {"ok": true, "device": {...}}.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -77,8 +82,9 @@ def cuda_ms(fn, reps, warmup=1):
 def device_ms(fn, reps, n_top=3):
     """Device time per call from torch.profiler (the device-side kernel
     and memcpy events over ``reps`` calls; the host ops that launched them
-    report the same time and are skipped), and the ``n_top`` largest
-    entries by name; None if the profiler sees no device activity."""
+    report the same time and are skipped), the ``n_top`` largest entries
+    by name, and the top-level ATen ops the host dispatched per call;
+    (None, [], ops) if the profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -89,15 +95,17 @@ def device_ms(fn, reps, n_top=3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
     per = {}
     for e in prof.key_averages():
         t = e.self_device_time_total
         if e.device_type != DeviceType.CPU and t > 0:
             per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / 1e3 / reps
     if not per:
-        return None, []
+        return None, [], ops / reps
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
-    return sum(per.values()), top
+    return sum(per.values()), top, ops / reps
 
 
 def check(cond, msg):
@@ -143,32 +151,61 @@ def per_ray_sweep_fwd(grid_sc, coeffs, enables, dt_map, *, reverse=False,
     return rgb, trans
 
 
+def sweep_work(args):
+    """(grid bytes of the slices enabled in any view, scalar bytes, ray
+    plane bytes, ray-slice samples of enabled slices) of one sweep; the
+    enables are (S,) for one view or (views, S) for a view batch."""
+    grid_sc, coeffs, enables, dt_map = args
+    s, _, n_y, n_x = grid_sc.shape
+    n_v, n_u = dt_map.shape
+    on = (enables > 0).reshape(-1, s)
+    samples = int(on.sum()) * (n_v // on.shape[0]) * n_u
+    return (int(on.any(0).sum()) * 4 * n_y * n_x * 4, 5 * on.numel() * 4,
+            n_v * n_u * 4, samples)
+
+
+def sweep_fwd_bound(args):
+    """(bytes ms, operations ms): each input read once (only enabled
+    slices of the grid), each output written once; SWEEP_FLOPS_PER_SAMPLE
+    per sample of an enabled slice. That is the work these inputs need
+    when no ray terminates early."""
+    grid_b, scal_b, plane_b, samples = sweep_work(args)
+    return ((grid_b + scal_b + 5 * plane_b) / HBM_BYTES_PER_S * 1e3,
+            SWEEP_FLOPS_PER_SAMPLE * samples / F32_FLOP_PER_S * 1e3)
+
+
 def sweep_bwd_bound(args):
     """(bytes ms, operations ms) of one backward sweep: the grid's enabled
     slices, the scalars and 9 ray planes (dt, rgb, T, their cotangents)
     read once, the gradient written once; BWD_FLOPS_PER_SAMPLE per sample
     of an enabled slice."""
-    grid_sc, coeffs, enables, dt_map = args
-    s, _, n_y, n_x = grid_sc.shape
-    n_v, n_u = dt_map.shape
-    n_en = int((enables > 0).sum())
-    nbytes = ((n_en + s) * 4 * n_y * n_x + 5 * s + 9 * n_v * n_u) * 4
-    return (nbytes / HBM_BYTES_PER_S * 1e3,
-            BWD_FLOPS_PER_SAMPLE * n_v * n_u * n_en / F32_FLOP_PER_S * 1e3)
+    grid_b, scal_b, plane_b, samples = sweep_work(args)
+    grad_b = args[0].numel() * 4
+    return ((grid_b + grad_b + scal_b + 9 * plane_b) / HBM_BYTES_PER_S * 1e3,
+            BWD_FLOPS_PER_SAMPLE * samples / F32_FLOP_PER_S * 1e3)
 
 
 def reset_counts():
     from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
 
-    sweep.launches = sweep_bwd.launches = 0
+    sweep.launches.clear()
+    sweep_bwd.launches.clear()
     lighting.launches = lighting.adj_launches = 0
 
 
 def read_counts():
+    """Launches since reset_counts, by kernel row: the sweep kernels'
+    counts (kept by view count) split into one view ("sweep_fwd",
+    "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views")."""
     from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
 
-    return {"sweep_fwd": sweep.launches, "sweep_bwd": sweep_bwd.launches,
-            "tau_sweep": lighting.launches, "tau_adj": lighting.adj_launches}
+    def batched(counts):
+        return sum(n for views, n in counts.items() if views > 1)
+
+    return {"sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
+            "tau_sweep": lighting.launches, "tau_adj": lighting.adj_launches,
+            "sweep_fwd_views": batched(sweep.launches),
+            "sweep_bwd_views": batched(sweep_bwd.launches)}
 
 
 def backward_kernels(dev):
@@ -349,6 +386,183 @@ def backward_kernels(dev):
     return out
 
 
+def c4_minibatch(dev):
+    """The c4 training step's sweep inputs: the first ``views_per_batch``
+    views of the first c4 view group, from the group's own cameras; the
+    grid (smoke sphere, 256^3) in the group's sweep layout, the views'
+    (views, S) coefficients and enables, their dt planes stacked along V.
+    Returns (reverse, views, args)."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.train import fit
+
+    c4 = configs.CONFIGS["c4"]
+    n = c4["grid_n"]
+    views = c4["train"].views_per_batch
+    groups = fit.group_views(configs.cameras(c4), (n, n, n, 4))
+    key = sorted(groups)[0]
+    _, stacked, _ = groups[key]
+    grid_sc = render.grid_to_sweep_layout(smoke_sphere(n, device=dev),
+                                          key[0]).contiguous()
+    c = stacked["coeffs"][:views].to(dev)
+    en = (render.slice_enables(grid_sc, key[1],
+                               c4["render"].use_occupancy)[None]
+          * stacked["valid"][:views].to(dev)).contiguous()
+    dt = stacked["dt"][:views].to(dev)
+    return key[1], views, (grid_sc, tuple(c.unbind(1)), en,
+                           dt.flatten(0, 1).contiguous())
+
+
+def view_batch_kernels(dev):
+    """The sweep kernels over a view batch (K5: forward, K6: backward) at
+    the c4 minibatch (8 views of the first c4 group at 256^2, 256^3):
+    against their plain versions at 'highest' and 'default' (K6 also
+    'high'), with and without softplus; K5 bit for bit against the same
+    kernel run view by view (K1, views=1), at eps 0 and at eps > 0 where
+    rays terminate; K6 against the per-view gradients (K3) summed in view
+    order, and two slabs against one call. Times K5 against 8 x K1 and K6
+    against 8 x K3 on the same minibatch. Returns the numbers for the
+    summary."""
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+    from tpuvr_torch.kernels.sweep_torch import (
+        sweep_bwd_views_torch,
+        sweep_fwd_views_torch,
+    )
+    from tpuvr_torch.ops import vjp
+
+    reverse, views, args = c4_minibatch(dev)
+    v_pv = args[3].shape[0] // views
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d_rgb = torch.randn((3, *args[3].shape), generator=gen, device=dev)
+    d_t = torch.randn(args[3].shape, generator=gen, device=dev)
+    raw = args[0].clone()
+    raw[:, 0] = torch.randn(raw[:, 0].shape, generator=gen,
+                            device=dev) * 2.0 - 1.0
+    raw_args = (raw, *args[1:])
+
+    def one_view(a, w):
+        grid_sc, coeffs, en, dt = a
+        return (grid_sc, tuple(c[w] for c in coeffs), en[w],
+                dt[w * v_pv:(w + 1) * v_pv])
+
+    def k1_loop(a, kw):
+        outs = [ksweep.sweep_fwd(*one_view(a, w), **kw) for w in range(views)]
+        return (torch.cat([r for r, _ in outs], dim=1),
+                torch.cat([t for _, t in outs], dim=0))
+
+    def k3_sum(a, rgb, t, kw):
+        total = None
+        for w in range(views):
+            sl = slice(w * v_pv, (w + 1) * v_pv)
+            g = kbwd.sweep_bwd(*one_view(a, w), rgb[:, sl], t[sl],
+                               d_rgb[:, sl], d_t[sl], **kw)
+            total = g if total is None else total + g
+        return total
+
+    out = {"views": views, "shape": f"c4 minibatch: {views} views at "
+           f"{v_pv}x{args[3].shape[1]}, grid {tuple(args[0].shape)}"}
+    fwd_err = bit_err = 0.0
+    for prec in ("highest", "default"):
+        for softplus in (False, True):
+            a = raw_args if softplus else args
+            kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+                      precision=prec, softplus=softplus)
+            k = ksweep.sweep_fwd(*a, views=views, **kw)
+            p = sweep_fwd_views_torch(*a, views=views, **kw)
+            loop = k1_loop(a, kw)
+            torch.cuda.synchronize()
+            err, bit = max_err(k, p), max_err(k, loop)
+            log(f"[kernel] sweep_fwd_views c4 {prec} softplus={softplus}: "
+                f"max abs err {err:.3e} against plain (tol 1e-5), {bit:.3e} "
+                "against K1 view by view (tol 0)")
+            check(err <= 1e-5 and bit == 0.0
+                  and all(bool(torch.isfinite(x).all()) for x in k),
+                  f"sweep_fwd_views {prec} softplus={softplus}")
+            bit_err = max(bit_err, bit)
+            if prec == "highest" and not softplus:
+                fwd_err = err
+    out["max_abs_err"] = fwd_err
+
+    # eps > 0 on a denser grid, where rays terminate: K5 and K6 stop each
+    # ray where K1 and K3 do.
+    dense = (args[0] + torch.tensor([0.05, 0.0, 0.0, 0.0], device=dev)[
+        None, :, None, None], *args[1:])
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=1e-2,
+              precision="highest")
+    rgb, t = ksweep.sweep_fwd(*dense, views=views, **kw)
+    n_term = int((t < 1e-2).sum())
+    bit = max_err((rgb, t), k1_loop(dense, kw))
+    g6 = kbwd.sweep_bwd(*dense, rgb, t, d_rgb, d_t, views=views, **kw)
+    g3 = k3_sum(dense, rgb, t, kw)
+    gbit = float((g6 - g3).abs().max())
+    log(f"[kernel] sweep_fwd_views/sweep_bwd_views c4 eps 1e-2, {n_term} of "
+        f"{t.numel()} rays terminated: forward {bit:.3e} and gradient "
+        f"{gbit:.3e} against K1/K3 view by view (tol 0)")
+    check(n_term > 0 and bit == 0.0 and gbit == 0.0, "view batch eps>0")
+    bit_err = max(bit_err, bit)
+    out["bit_err_vs_k1"] = bit_err
+    del dense, g6, g3
+
+    bwd_err = 0.0
+    for prec, softplus in (("highest", False), ("high", False),
+                           ("default", False), ("highest", True)):
+        a = raw_args if softplus else args
+        kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+                  precision=prec, softplus=softplus)
+        rgb, t = ksweep.sweep_fwd(*a, views=views, **kw)
+        k = kbwd.sweep_bwd(*a, rgb, t, d_rgb, d_t, views=views, **kw)
+        p = sweep_bwd_views_torch(*a, rgb, t, d_rgb, d_t, views=views, **kw)
+        torch.cuda.synchronize()
+        scale = float(p.abs().max())
+        err = float((k - p).abs().max())
+        line = (f"[kernel] sweep_bwd_views c4 {prec} softplus={softplus}: "
+                f"{err / scale:.3e} of max|grad| {scale:.3e} against plain "
+                f"(tol {GRAD_TOL[prec]:g})")
+        ok = scale > 0 and err <= GRAD_TOL[prec] * scale and bool(
+            torch.isfinite(k).all())
+        if prec == "highest":
+            loop_err = float((k - k3_sum(a, rgb, t, kw)).abs().max()) / scale
+            line += f", {loop_err:.3e} against K3 summed (tol 1e-6)"
+            ok = ok and loop_err <= 1e-6
+            two = vjp._chunked_bwd(kbwd.sweep_bwd, 2, *a, rgb, t, d_rgb, d_t,
+                                   dict(kw, views=views))
+            slab_err = float((two - k).abs().max()) / scale
+            line += f", two slabs vs one call {slab_err:.3e} (tol 1e-5)"
+            ok = ok and slab_err <= 1e-5
+            if not softplus:
+                bwd_err = err
+                out["k3_sum_err_of_max"] = loop_err
+        log(line)
+        check(ok, f"sweep_bwd_views {prec} softplus={softplus}")
+    out["bwd_max_abs_err"] = bwd_err
+
+    # Times at the configured c4 step's settings ('highest', eps 0).
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+              precision="highest")
+    rgb, t = ksweep.sweep_fwd(*args, views=views, **kw)
+    out["slab"] = kbwd.slab_slices(args[0].shape[0], *t.shape)
+    out["fwd_ms"] = cuda_ms(lambda: ksweep.sweep_fwd(*args, views=views,
+                                                     **kw), 10)
+    out["fwd_loop_ms"] = cuda_ms(lambda: k1_loop(args, kw), 5)
+    out["fwd_plain_ms"] = cuda_ms(lambda: sweep_fwd_views_torch(
+        *args, views=views, **kw), 2)
+    out["bwd_ms"] = cuda_ms(lambda: kbwd.sweep_bwd(
+        *args, rgb, t, d_rgb, d_t, views=views, **kw), 5)
+    out["bwd_loop_ms"] = cuda_ms(lambda: k3_sum(args, rgb, t, kw), 3)
+    out["bwd_plain_ms"] = cuda_ms(lambda: sweep_bwd_views_torch(
+        *args, rgb, t, d_rgb, d_t, views=views, **kw), 1)
+    out["fwd_bytes_ms"], out["fwd_ops_ms"] = sweep_fwd_bound(args)
+    out["k1_view_bytes_ms"], out["k1_view_ops_ms"] = sweep_fwd_bound(
+        one_view(args, 0))
+    out["bwd_bytes_ms"], out["bwd_ops_ms"] = sweep_bwd_bound(args)
+    log("[kernel] view batch c4 (highest): " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in out.items()))
+    return out
+
+
 class _CaptureGrad:
     """An optimizer whose state after a step is the step's gradient."""
 
@@ -361,9 +575,11 @@ class _CaptureGrad:
 
 def training(dev, run_root):
     """The training main paths: c4 at full width through fit_grid, as
-    configured and fused; one c4 step through the kernels against the same
-    step through the plain versions; a lit fit with differentiable shadows
-    at 128^3. Returns the numbers for the summary."""
+    configured and fused, each with the view-batched sweep and view by
+    view; one batched c4 step through the kernels against the same step
+    through the plain versions and against the view-by-view step; a lit
+    fit with differentiable shadows at 128^3. Returns the numbers for the
+    summary."""
     from tpuvr_torch import configs
     from tpuvr_torch.config import LightingConfig
     from tpuvr_torch.io.synth import smoke_sphere
@@ -374,6 +590,7 @@ def training(dev, run_root):
     n = c4["grid_n"]
     shape = (n, n, n, 4)
     cams = configs.cameras(c4)
+    k_views = c4["train"].views_per_batch
     t0 = time.time()
     targets = fit.render_all_views(smoke_sphere(n), cams, run)
     torch.cuda.synchronize()
@@ -383,9 +600,18 @@ def training(dev, run_root):
           and bool(torch.isfinite(targets).all())
           and float(targets.max()) > 0.0, "c4 targets")
 
-    def fit_run(label, steps, k, fused):
+    def view_batch(on):
+        """fit_grid's view batch on (the default) or off, through the JAX
+        package's own switch."""
+        if on:
+            os.environ.pop("TPUVR_VIEW_BATCH", None)
+        else:
+            os.environ["TPUVR_VIEW_BATCH"] = "0"
+
+    def fit_run(label, steps, k, fused, batched):
         cfg = dataclasses.replace(c4["train"], steps=steps,
                                   steps_per_call=k)
+        view_batch(batched)
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -395,54 +621,71 @@ def training(dev, run_root):
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = read_counts()
+        view_batch(True)
         loss = hist["loss"]
         ms = float(np.mean(hist["step_ms"][1:]))
         log(f"[main] c4 {label} ({steps} steps, steps_per_call {k}, fused "
-            f"{fused}): {ms:.3f} ms/step after the first "
-            f"({hist['step_ms'][0]:.1f} ms), loss {loss[0]:.5f} -> "
+            f"{fused}, view batch {batched}): {ms:.3f} ms/step after the "
+            f"first ({hist['step_ms'][0]:.1f} ms), loss {loss[0]:.5f} -> "
             f"{loss[-1]:.5f}, launches {counts}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"fit_grid wall {wall:.2f} s")
         check(len(loss) == steps and all(np.isfinite(loss)),
               f"c4 {label} losses")
         check(loss[-1] < loss[0], f"c4 {label}: the loss did not fall")
-        check(counts["sweep_fwd"] > 0 and counts["sweep_bwd"] > 0,
-              f"c4 {label} did not go through the sweep kernels")
+        # Every c4 group holds 16 views, so every step marches 8.
+        per_step = ({"sweep_fwd_views": 1, "sweep_bwd_views": 1,
+                     "sweep_fwd": 0, "sweep_bwd": 0} if batched else
+                    {"sweep_fwd_views": 0, "sweep_bwd_views": 0,
+                     "sweep_fwd": k_views, "sweep_bwd": k_views})
+        check(all(counts[name] == m * steps for name, m in per_step.items()),
+              f"c4 {label} did not go through the expected sweep kernels")
         check(bool(torch.isfinite(grid).all()), f"c4 {label} grid")
         return dict(ms_per_step=ms, first_step_ms=hist["step_ms"][0],
                     loss_first=loss[0], loss_last=loss[-1], launches=counts,
                     steps=steps, steps_per_call=k, fused=fused,
+                    view_batch=batched,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    out = {"c4": fit_run("configured", 10, 1, False),
-           "c4_fused": fit_run("fused", 8, 4, True)}
+    runs = (("c4", "configured", 10, 1, False, True),
+            ("c4_fused", "fused", 8, 4, True, True),
+            ("c4_loop", "configured_loop", 10, 1, False, False),
+            ("c4_fused_loop", "fused_loop", 8, 4, True, False))
+    out = {name: fit_run(label, steps, k, fused, batched)
+           for name, label, steps, k, fused, batched in runs}
 
     # Device-busy share: device time per step of an 8-step fit
     # (torch.profiler's device events, set-up included) over the ms/step
     # of the unprofiled run above (the profiler slows the host).
     n_prof = 8
-    for label, k, fused in (("c4", 1, False), ("c4_fused", 4, True)):
+    for name, _, _, k, fused, batched in runs:
         def short(k=k, fused=fused):
             cfg = dataclasses.replace(c4["train"], steps=n_prof,
                                       steps_per_call=k, ckpt_every=0)
             fit.fit_grid(targets, cams, shape, cfg, run,
                          run_dir=f"{run_root}/profiled", fused=fused)
 
-        dev_ms, top = device_ms(short, 1, n_top=8)
+        view_batch(batched)
+        dev_ms, top, ops = device_ms(short, 1, n_top=8)
+        view_batch(True)
         per_step = None if dev_ms is None else dev_ms / n_prof
-        out[label].update(
+        out[name].update(
+            host_ops_per_step=ops / n_prof,
             device_ms_per_step=per_step,
             device_busy=(None if dev_ms is None
-                         else per_step / out[label]["ms_per_step"]))
-        log(f"[main] c4 {label} device time: " + (
+                         else per_step / out[name]["ms_per_step"]))
+        log(f"[main] {name} device time: " + (
             "not measured (the profiler saw no device activity)"
             if dev_ms is None else
             f"{per_step:.3f} ms/step, busy "
-            f"{out[label]['device_busy']:.3f} of the step; by kernel "
-            + "; ".join(f"{k} {v / n_prof:.3f} ms/step" for k, v in top)))
+            f"{out[name]['device_busy']:.3f} of the step; by kernel "
+            + "; ".join(f"{k} {v / n_prof:.3f} ms/step" for k, v in top))
+            + f"; {ops / n_prof:.0f} top-level ATen ops per step (set-up "
+            "included)")
 
-    # One c4 step through the kernels against the same step through the
-    # plain versions, from one state: loss and gradient.
+    # One c4 step from one state, batched through the kernels, against
+    # the same step through the plain versions and against the step
+    # marched view by view through the kernels: loss and gradient.
     groups = fit.group_views(cams, shape)
     key = sorted(groups)[0]
     idxs, stacked, _ = groups[key]
@@ -450,22 +693,51 @@ def training(dev, run_root):
     gen = torch.Generator(device=dev).manual_seed(1)
     params = fit.init_params(shape, True) + 0.3 * torch.randn(
         shape, generator=gen, device=dev)
-    res = {}
-    for impl in ("cuda", "torch"):
-        step = fit.make_train_step(key, 8, _CaptureGrad(), run, True, impl)
-        _, grad, loss = step(params, None, stacked,
-                             targets[torch.as_tensor(idxs, device=dev)],
-                             np.arange(8), np.zeros(8, np.int32))
-        res[impl] = (float(loss), grad)
-    rel = abs(res["cuda"][0] - res["torch"][0]) / res["torch"][0]
-    scale = float(res["torch"][1].abs().max())
-    gerr = float((res["cuda"][1] - res["torch"][1]).abs().max())
-    log(f"[main] c4 step, kernels vs plain on the card: loss "
-        f"{res['cuda'][0]:.7f} vs {res['torch'][0]:.7f} ({rel:.2e} relative, "
-        f"tol 1e-6); gradient {gerr / scale:.3e} of max|grad| {scale:.3e} "
-        "(tol 1e-5)")
-    check(rel <= 1e-6 and gerr <= 1e-5 * scale, "c4 step kernels vs plain")
-    out["step_check"] = dict(loss_rel_err=rel, grad_err_of_max=gerr / scale)
+    group_targets = targets[torch.as_tensor(idxs, device=dev)]
+    res, host = {}, {}
+    for label, impl, batched in (("kernels", "cuda", True),
+                                 ("plain", "torch", True),
+                                 ("view_loop", "cuda", False)):
+        step = fit.make_train_step(key, k_views, _CaptureGrad(), run, True,
+                                   impl, view_batch=batched)
+
+        def call(step=step):
+            return step(params, None, stacked, group_targets,
+                        np.arange(k_views), np.zeros(k_views, np.int32))
+
+        _, grad, loss = call()
+        res[label] = (float(loss), grad)
+        if impl == "cuda":
+            # Host clock: the time to issue one step from an idle card,
+            # and to its end (median of 5).
+            issue, whole = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                call()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                issue.append((t1 - t0) * 1e3)
+                whole.append((time.perf_counter() - t0) * 1e3)
+            host[label] = dict(issue_ms=float(np.median(issue)),
+                               step_ms=float(np.median(whole)))
+            log(f"[main] c4 step ({label}, view batch {batched}), host "
+                f"clock: {host[label]['issue_ms']:.3f} ms to issue from an "
+                f"idle card, {host[label]['step_ms']:.3f} ms to its end")
+    out["host"] = host
+    out["step_check"] = {}
+    for other in ("plain", "view_loop"):
+        rel = abs(res["kernels"][0] - res[other][0]) / res[other][0]
+        scale = float(res[other][1].abs().max())
+        gerr = float((res["kernels"][1] - res[other][1]).abs().max())
+        log(f"[main] c4 batched step through the kernels vs {other}: loss "
+            f"{res['kernels'][0]:.7f} vs {res[other][0]:.7f} ({rel:.2e} "
+            f"relative, tol 1e-6); gradient {gerr / scale:.3e} of max|grad| "
+            f"{scale:.3e} (tol 1e-5)")
+        check(rel <= 1e-6 and gerr <= 1e-5 * scale,
+              f"c4 batched step vs {other}")
+        out["step_check"][other] = dict(loss_rel_err=rel,
+                                        grad_err_of_max=gerr / scale)
     del groups, stacked, params, res, grad
 
     # Lit training with differentiable shadows, reduced to 128^3.
@@ -484,7 +756,8 @@ def training(dev, run_root):
         f"{hist['step_ms'][-1]:.2f} ms for the second step, loss "
         f"{hist['loss'][0]:.5f} -> {hist['loss'][-1]:.5f}, launches {counts}")
     check(counts["tau_adj"] > 0 and counts["tau_sweep"] > 0
-          and counts["sweep_bwd"] > 0, "lit fit did not launch the kernels")
+          and counts["sweep_bwd"] + counts["sweep_bwd_views"] > 0,
+          "lit fit did not launch the kernels")
     check(bool(torch.isfinite(grid).all()), "lit fit grid")
     out["lit"] = dict(second_step_ms=hist["step_ms"][-1], launches=counts,
                       loss=hist["loss"])
@@ -531,20 +804,6 @@ def main():
                                    device=dev)
         plan, _, args = render.sweep_inputs(prep, cam, cfg["render"], dev)
         return cfg, grid, cam, plan, args
-
-    def sweep_bound(args):
-        """(bytes ms, operations ms): each input read once (only enabled
-        slices of the grid), each output written once; 40 flop per
-        sample of an enabled slice. That is the work these inputs need
-        when no ray terminates early (the caller logs how many did)."""
-        grid_sc, coeffs, enables, dt_map = args
-        s, _, n_y, n_x = grid_sc.shape
-        n_v, n_u = dt_map.shape
-        n_en = int((enables > 0).sum())
-        nbytes = (n_en * 4 * n_y * n_x + 5 * s + 5 * n_v * n_u) * 4
-        return (nbytes / HBM_BYTES_PER_S * 1e3,
-                SWEEP_FLOPS_PER_SAMPLE * n_v * n_u * n_en
-                / F32_FLOP_PER_S * 1e3)
 
     def grid_sample_ms(args):
         """Yardstick: one grid_sample of slice 0 at its sample positions,
@@ -601,7 +860,7 @@ def main():
         run = cfg["render"]
         kw = dict(reverse=plan.reverse, early_stop_eps=run.early_stop_eps,
                   precision=run.precision, sigma_scale=run.sigma_scale)
-        bytes_ms, ops_ms = sweep_bound(args)
+        bytes_ms, ops_ms = sweep_fwd_bound(args)
         t_run = outs[(run.precision, run.early_stop_eps)][1]
         sweep_ms[name] = dict(
             ms=cuda_ms(lambda: ksweep.sweep_fwd(*args, **kw), 10),
@@ -645,6 +904,7 @@ def main():
     log(f"[kernel] tau_sweep 256^3: {tau_ms:.4f} ms/direction "
         f"(plain {tau_plain_ms:.4f})")
     bwd = backward_kernels(dev)
+    vb = view_batch_kernels(dev)
 
     # Whole render path: card against device="cpu" on small inputs.
     for name, n, res, n_dirs in (("c2", 32, 48, None), ("c3", 24, 40, 4)):
@@ -671,8 +931,7 @@ def main():
     del sigma, tau_cases
 
     # 3. The main path at full size, through the entry points.
-    ksweep.launches = 0
-    klight.launches = 0
+    reset_counts()
     frames = {}
     for name in ("c1", "c2", "headline", "c3"):
         cfg = configs.CONFIGS[name]
@@ -693,7 +952,7 @@ def main():
             bake_ms = (time.time() - t0) * 1e3
             check(klight.launches - before == cfg["lighting"].n_samples,
                   "light bake did not go through the tau kernel")
-            bake_dev, bake_top = device_ms(lambda: render.prepare_grid(
+            bake_dev, bake_top, _ = device_ms(lambda: render.prepare_grid(
                 grid, axes=(axis,), lighting=cfg["lighting"],
                 precision=run.precision), 1)
             log(f"[main] c3 light bake ({cfg['lighting'].n_samples} "
@@ -717,10 +976,10 @@ def main():
               f"{name} T outside [0, 1]")
         check(float(rgb.abs().max()) > 0.0, f"{name} black image")
         rays = cam.res_x * cam.res_y
-        dev_ms, top = device_ms(
+        dev_ms, top, ops = device_ms(
             lambda: render.render_prepared(prep, cam, run), n_frames)
         frames[name] = dict(ms_per_frame=ms, rays_per_s=rays / ms * 1e3,
-                            device_ms_per_frame=dev_ms,
+                            device_ms_per_frame=dev_ms, host_ops=ops,
                             device_busy=(None if dev_ms is None
                                          else dev_ms / ms),
                             bake_ms=bake_ms, bake_device_ms=bake_dev)
@@ -734,7 +993,7 @@ def main():
             f"{dev_ms / ms:.3f} of the frame; by kernel " + "; ".join(
                 f"{k} {v:.4f} ms" for k, v in top)))
         del prep, grid, rgb, t
-    launches = {"sweep_fwd": ksweep.launches, "tau_sweep": klight.launches}
+    launches = read_counts()
     log(f"[main] launches on the main path: {launches}")
     check(launches["sweep_fwd"] > 0, "main path never launched sweep_fwd")
     check(launches["tau_sweep"] > 0, "main path never launched tau_sweep")
@@ -746,11 +1005,19 @@ def main():
         train = training(dev, run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
-    train_paths = ("c4", "c4_fused", "lit")
+    train_paths = ("c4", "c4_fused", "c4_loop", "c4_fused_loop", "lit")
     launches_by_path = {
         name: {"render": launches.get(name, 0),
                **{p: train[p]["launches"][name] for p in train_paths}}
-        for name in ("sweep_fwd", "sweep_bwd", "tau_sweep", "tau_adj")}
+        for name in ("sweep_fwd", "sweep_bwd", "tau_sweep", "tau_adj",
+                     "sweep_fwd_views", "sweep_bwd_views")}
+
+    def train_launches(name):
+        return sum(train[p]["launches"][name] for p in train_paths)
+
+    def bound(bytes_ms, ops_ms):
+        return {"bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
     # 5. Summary.
     head = sweep_ms["headline"]
@@ -758,16 +1025,14 @@ def main():
     kernels = [
         {
             "name": "sweep_fwd", "route": "cuda",
-            "source": "tpuvr_torch/csrc/sweep_fwd.cu",
+            "source": "tpuvr_torch/csrc/sweep_fwd.cu", "views": 1,
             "replaces": "tpuvr/kernels/sweep.py:179",
             "also_replaces": "tpuvr/kernels/sweep.py:491",
             "launches": launches["sweep_fwd"],
             "max_abs_err": sweep_err,
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
-            "bound_ms": max(head["bytes_ms"], head["ops_ms"]),
-            "bound_by": ("bytes" if head["bytes_ms"] >= head["ops_ms"]
-                         else "operations"),
+            **bound(head["bytes_ms"], head["ops_ms"]),
             "library_ms": head["library_ms"],
             "library_call": "grid_sample of one slice x S (yardstick)",
             "shape": "headline 256^3 @ 512^2, default, eps 1e-4",
@@ -775,6 +1040,9 @@ def main():
             "launches_by_path": launches_by_path["sweep_fwd"],
             "softplus_max_abs_err": bwd["softplus_fwd_err"],
             "softplus_ms_c4": bwd["softplus_fwd_ms"],
+            "c4_view_ms": vb["fwd_loop_ms"] / vb["views"],
+            "c4_view_bound": bound(vb["k1_view_bytes_ms"],
+                                   vb["k1_view_ops_ms"]),
         },
         {
             "name": "tau_sweep", "route": "cuda",
@@ -787,26 +1055,21 @@ def main():
             "max_abs_err": tau_err,
             "ms": tau_ms,
             "plain_ms": tau_plain_ms,
-            "bound_ms": max(tau_bytes_ms, tau_ops_ms),
-            "bound_by": ("bytes" if tau_bytes_ms >= tau_ops_ms
-                         else "operations"),
+            **bound(tau_bytes_ms, tau_ops_ms),
             "library_ms": None,
             "shape": "one direction at 256^3, highest",
         },
         {
             "name": "sweep_bwd", "route": "cuda",
-            "source": "tpuvr_torch/csrc/sweep_bwd.cu",
+            "source": "tpuvr_torch/csrc/sweep_bwd.cu", "views": 1,
             "replaces": "tpuvr/kernels/sweep_bwd.py:58",
             "also_replaces": "tpuvr/kernels/sweep_bwd.py:341",
-            "launches": sum(train[p]["launches"]["sweep_bwd"]
-                            for p in train_paths),
+            "launches": train_launches("sweep_bwd"),
             "launches_by_path": launches_by_path["sweep_bwd"],
             "max_abs_err": bwd["max_abs_err"],
             "ms": bc4["ms"],
             "plain_ms": bwd["plain_ms"],
-            "bound_ms": max(bc4["bytes_ms"], bc4["ops_ms"]),
-            "bound_by": ("bytes" if bc4["bytes_ms"] >= bc4["ops_ms"]
-                         else "operations"),
+            **bound(bc4["bytes_ms"], bc4["ops_ms"]),
             "library_ms": None,
             "shape": "c4: 256^3, first orbit view at 256^2, highest",
             "by_config": bwd["by_config"],
@@ -822,11 +1085,46 @@ def main():
             "max_abs_err": bwd["adj_err"],
             "ms": bwd["adj_ms"],
             "plain_ms": bwd["adj_plain_ms"],
-            "bound_ms": max(bwd["adj_bytes_ms"], bwd["adj_ops_ms"]),
-            "bound_by": ("bytes" if bwd["adj_bytes_ms"] >= bwd["adj_ops_ms"]
-                         else "operations"),
+            **bound(bwd["adj_bytes_ms"], bwd["adj_ops_ms"]),
             "library_ms": None,
             "shape": "one direction at 256^3, highest",
+        },
+        {
+            "name": "sweep_fwd_views", "route": "cuda",
+            "source": "tpuvr_torch/csrc/sweep_fwd.cu",
+            "views": vb["views"],
+            "replaces": "tpuvr/kernels/sweep.py:270",
+            "launches": train_launches("sweep_fwd_views"),
+            "launches_by_path": launches_by_path["sweep_fwd_views"],
+            "max_abs_err": vb["max_abs_err"],
+            "max_abs_err_vs_k1_loop": vb["bit_err_vs_k1"],
+            "ms": vb["fwd_ms"],
+            "k1_loop_ms": vb["fwd_loop_ms"],
+            "plain_ms": vb["fwd_plain_ms"],
+            **bound(vb["fwd_bytes_ms"], vb["fwd_ops_ms"]),
+            "library_ms": None,
+            "library_call": "none: no one PyTorch call computes a "
+                            "view-batched sweep",
+            "shape": vb["shape"] + ", highest",
+        },
+        {
+            "name": "sweep_bwd_views", "route": "cuda",
+            "source": "tpuvr_torch/csrc/sweep_bwd.cu",
+            "views": vb["views"],
+            "replaces": "tpuvr/kernels/sweep_bwd.py:165",
+            "launches": train_launches("sweep_bwd_views"),
+            "launches_by_path": launches_by_path["sweep_bwd_views"],
+            "max_abs_err": vb["bwd_max_abs_err"],
+            "err_of_max_vs_k3_sum": vb["k3_sum_err_of_max"],
+            "ms": vb["bwd_ms"],
+            "k3_loop_ms": vb["bwd_loop_ms"],
+            "plain_ms": vb["bwd_plain_ms"],
+            **bound(vb["bwd_bytes_ms"], vb["bwd_ops_ms"]),
+            "library_ms": None,
+            "library_call": "none: no one PyTorch call computes a sweep's "
+                            "gradient",
+            "slab": vb["slab"],
+            "shape": vb["shape"] + ", highest",
         },
     ]
     log(json.dumps({"frames": frames}))

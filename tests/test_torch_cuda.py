@@ -25,9 +25,15 @@ from tpuvr_torch.io.synth import smoke_sphere
 from tpuvr_torch.kernels import lighting as klight
 from tpuvr_torch.kernels import sweep as ksweep
 from tpuvr_torch.kernels import sweep_bwd as kbwd
-from tpuvr_torch.kernels.sweep_torch import sweep_bwd_torch, sweep_fwd_torch
+from tpuvr_torch.kernels.sweep_torch import (
+    sweep_bwd_torch,
+    sweep_bwd_views_torch,
+    sweep_fwd_torch,
+    sweep_fwd_views_torch,
+)
 from tpuvr_torch.ops import render, vjp
 from tpuvr_torch.ref.camera import dominant_axis
+from tpuvr_torch.train import fit
 
 pytestmark = pytest.mark.cuda
 
@@ -56,10 +62,10 @@ def test_sweep_kernel_matches_plain(card, name, precision, eps):
     plan, args = _sweep_args(card, name, 24, 40)
     kw = dict(reverse=plan.reverse, early_stop_eps=eps, precision=precision,
               sigma_scale=1.7)
-    before = ksweep.launches
+    before = ksweep.launches.copy()
     k = ksweep.sweep_fwd(*args, **kw)
     p = sweep_fwd_torch(*args, **kw)
-    assert ksweep.launches == before + 1
+    assert ksweep.launches - before == {1: 1}
     for a, b in zip(k, p):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 + eps)
 
@@ -124,10 +130,10 @@ def test_sweep_bwd_kernel_matches_plain(card, name, precision, softplus):
               softplus=softplus)
     rgb, t = sweep_fwd_torch(*args, **kw)
     d_rgb, d_t = _cotangents(card, args, 3)
-    before = kbwd.launches
+    before = kbwd.launches.copy()
     k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
     p = sweep_bwd_torch(*args, rgb, t, d_rgb, d_t, **kw)
-    assert kbwd.launches == before + 1
+    assert kbwd.launches - before == {1: 1}
     scale = float(p.abs().max())
     assert scale > 0
     torch.testing.assert_close(k, p, rtol=0, atol=GRAD_TOL[precision] * scale)
@@ -192,14 +198,14 @@ def test_gradients_flow_through_the_kernels(card):
     grads = {}
     for dev in ("cpu", card):
         g = g_cpu.to(dev, copy=True).requires_grad_(True)
-        before = (kbwd.launches, klight.adj_launches)
+        before = (kbwd.launches.copy(), klight.adj_launches)
         rgb, t = render.render_view(g, cam, RenderConfig(early_stop_eps=0.0),
                                     lighting=lit, device=dev)
         (rgb.square().sum() + t.sum()).backward()
         grads[str(dev)] = g.grad.cpu()
-        launched = (kbwd.launches - before[0],
+        launched = (dict(kbwd.launches - before[0]),
                     klight.adj_launches - before[1])
-        assert launched == ((0, 0) if dev == "cpu" else (1, 3))
+        assert launched == (({}, 0) if dev == "cpu" else ({1: 1}, 3))
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=0,
                                atol=1e-5 * float(grads["cpu"].abs().max()))
 
@@ -218,3 +224,160 @@ def test_wrappers_reject_bad_inputs(card):
         ksweep.sweep_fwd(grid_sc, coeffs, en, dt[:0])
     with pytest.raises(ValueError, match="contiguous"):
         klight.tau_sweep(grid_sc[:, 0], d_y=0.0, d_x=0.0, dt=1.0)
+
+
+def _views_args(card, group, views=4, n=24, res=20):
+    """A c4-like view batch on the card: ``views`` views of one orbit
+    group (its own cameras at a reduced size), the grid in that group's
+    sweep layout, per-(view, slice) enables with one extra pair disabled,
+    and the views' dt planes stacked along V."""
+    cams = configs.cameras(configs.CONFIGS["c4"], n=n, res=res, n_views=16)
+    groups = fit.group_views(cams, (n, n, n, 4))
+    key = sorted(groups)[group]
+    _, stacked, _ = groups[key]
+    grid = smoke_sphere(n, device=card) + torch.tensor(
+        [0.3, 0.0, 0.0, 0.0], device=card)
+    grid_sc = render.grid_to_sweep_layout(grid, key[0]).contiguous()
+    c = stacked["coeffs"][:views].to(card)
+    en = (render.slice_enables(grid_sc, key[1], True)[None]
+          * stacked["valid"][:views].to(card)).contiguous()
+    en[1, en.shape[1] // 2] = 0.0
+    dt = stacked["dt"][:views].to(card).reshape(-1, res).contiguous()
+    return key[1], (grid_sc, tuple(c[:, i].contiguous() for i in range(4)),
+                    en, dt)
+
+
+def _raw(args):
+    raw = args[0].clone()
+    raw[:, 0] = torch.randn_like(raw[:, 0]) * 2.0 - 1.0
+    return (raw, *args[1:])
+
+
+def _per_view(args, views, w):
+    grid_sc, coeffs, en, dt = args
+    v_pv = dt.shape[0] // views
+    return (grid_sc, tuple(c[w] for c in coeffs), en[w],
+            dt[w * v_pv:(w + 1) * v_pv])
+
+
+@pytest.mark.parametrize("group", [0, 1])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("softplus", [False, True])
+@pytest.mark.parametrize("eps", [0.0, 1e-2])
+def test_sweep_views_kernel_matches_plain_and_k1(card, group, precision,
+                                                 softplus, eps):
+    """The forward kernel over a batch of 4 views against its plain
+    version (eps * max|c| apart at eps > 0), and bit for bit against the
+    kernel run view by view."""
+    reverse, args = _views_args(card, group)
+    if softplus:
+        args = _raw(args)
+    kw = dict(reverse=reverse, precision=precision, sigma_scale=1.3,
+              early_stop_eps=eps, softplus=softplus)
+    before = ksweep.launches.copy()
+    k = ksweep.sweep_fwd(*args, views=4, **kw)
+    assert ksweep.launches - before == {4: 1}
+    p = sweep_fwd_views_torch(*args, views=4, **kw)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 + eps)
+    loop = [ksweep.sweep_fwd(*_per_view(args, 4, w), **kw) for w in range(4)]
+    assert torch.equal(k[0], torch.cat([r for r, _ in loop], dim=1))
+    assert torch.equal(k[1], torch.cat([t for _, t in loop], dim=0))
+
+
+@pytest.mark.parametrize("group", [0, 1])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("softplus", [False, True])
+def test_sweep_bwd_views_kernel_matches_plain_and_k3(card, group, precision,
+                                                     softplus):
+    """The backward kernel over a batch of 4 views against its plain
+    version (GRAD_TOL of max|grad|) and against the kernel's per-view
+    gradients summed in view order (1e-6 of max|grad|)."""
+    reverse, args = _views_args(card, group)
+    if softplus:
+        args = _raw(args)
+    kw = dict(reverse=reverse, precision=precision, sigma_scale=1.3,
+              softplus=softplus)
+    rgb, t = ksweep.sweep_fwd(*args, views=4, **kw)
+    d_rgb, d_t = _cotangents(card, args, 6)
+    before = kbwd.launches.copy()
+    k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, views=4, **kw)
+    assert kbwd.launches - before == {4: 1}
+    p = sweep_bwd_views_torch(*args, rgb, t, d_rgb, d_t, views=4, **kw)
+    scale = float(p.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(k, p, rtol=0, atol=GRAD_TOL[precision] * scale)
+    v_pv = t.shape[0] // 4
+    total = None
+    for w in range(4):
+        sl = slice(w * v_pv, (w + 1) * v_pv)
+        g = kbwd.sweep_bwd(*_per_view(args, 4, w), rgb[:, sl], t[sl],
+                           d_rgb[:, sl], d_t[sl], **kw)
+        total = g if total is None else total + g
+    torch.testing.assert_close(k, total, rtol=0, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("softplus", [False, True])
+def test_sweep_bwd_views_kernel_carry_matches_one_call(card, reverse,
+                                                       softplus):
+    _, args = _views_args(card, 0)
+    if softplus:
+        args = _raw(args)
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+              precision="highest", softplus=softplus, views=4)
+    rgb, t = ksweep.sweep_fwd(*args, **kw)
+    d_rgb, d_t = _cotangents(card, args, 7)
+    one = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
+    two = vjp._chunked_bwd(kbwd.sweep_bwd, 2, *args, rgb, t, d_rgb, d_t, kw)
+    torch.testing.assert_close(two, one, rtol=0,
+                               atol=1e-5 * float(one.abs().max()))
+
+
+def test_sweep_views_kernel_ert_matches_k1_loop(card):
+    """eps > 0 where rays terminate: over a view batch the kernels stop
+    each ray where they stop it view by view, so the batch equals the
+    per-view loop."""
+    reverse, (grid_sc, *rest) = _views_args(card, 0)
+    grid_sc = grid_sc.clone()
+    grid_sc[:, 0] += 0.6
+    args = (grid_sc, *rest)
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=1e-2,
+              precision="highest")
+    rgb, t = ksweep.sweep_fwd(*args, views=4, **kw)
+    assert int((t < 1e-2).sum()) > 0
+    d_rgb, d_t = _cotangents(card, args, 8)
+    k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, views=4, **kw)
+    v_pv = t.shape[0] // 4
+    total = None
+    for w in range(4):
+        sl = slice(w * v_pv, (w + 1) * v_pv)
+        a = _per_view(args, 4, w)
+        r1, t1 = ksweep.sweep_fwd(*a, **kw)
+        assert torch.equal(r1, rgb[:, sl]) and torch.equal(t1, t[sl])
+        g = kbwd.sweep_bwd(*a, r1, t1, d_rgb[:, sl], d_t[sl], **kw)
+        total = g if total is None else total + g
+    assert torch.equal(k, total)
+
+
+def test_views_wrappers_reject_beyond_capacity(card):
+    _, (grid_sc, coeffs, en, dt) = _views_args(card, 0)
+    with pytest.raises(ValueError, match="equal views"):
+        ksweep.sweep_fwd(grid_sc, coeffs, en, dt[:-1], views=4)
+    with pytest.raises(ValueError, match="shape"):
+        ksweep.sweep_fwd(grid_sc, tuple(c[:3] for c in coeffs), en[:3], dt,
+                         views=4)
+    one = torch.zeros((1, 1), device=card)
+    with pytest.raises(ValueError, match="views"):
+        ksweep.sweep_fwd(torch.zeros((1, 4, 1, 1), device=card),
+                         (one.expand(65536, 1),) * 4, one.expand(65536, 1),
+                         torch.zeros((65536, 1), device=card), views=65536)
+    s = 2049  # (5, S) scalars per block past the kernel's shared memory
+    big = torch.zeros((s, 4, 1, 1), device=card)
+    row = torch.zeros((2, s), device=card)
+    for fn, extra in ((ksweep.sweep_fwd, ()),
+                      (kbwd.sweep_bwd, (torch.zeros((3, 2, 1), device=card),
+                                        torch.zeros((2, 1), device=card)) * 2)):
+        with pytest.raises(ValueError, match="slices"):
+            fn(big, (row,) * 4, row, torch.ones((2, 1), device=card), *extra,
+               views=2)

@@ -161,7 +161,7 @@ def test_wrapper_runs_twin_on_cpu(precision):
     gsc, coeffs, en, dt, reverse = _inputs("persp_y", "float32")
     args = (torch.as_tensor(gsc), tuple(map(torch.as_tensor, coeffs)),
             torch.as_tensor(en), torch.as_tensor(dt))
-    before = tsweep.launches
+    before = tsweep.launches.copy()
     a = tsweep.sweep_fwd(*args, reverse=reverse, precision=precision)
     b = st.sweep_fwd_torch(*args, reverse=reverse, precision=precision)
     assert tsweep.launches == before  # the CPU path launches nothing

@@ -218,7 +218,7 @@ def test_sweep_op_gives_no_geometry_gradients():
 def test_bwd_wrapper_runs_twin_on_cpu():
     grid, coeffs, en, dt, d_rgb, d_t = map(_torch, _setup("float32"))
     rgb, t = st.sweep_fwd_torch(grid, coeffs, en, dt)
-    before = tsweep_bwd.launches
+    before = tsweep_bwd.launches.copy()
     a = tsweep_bwd.sweep_bwd(grid, coeffs, en, dt, rgb, t, d_rgb, d_t,
                              softplus=True)
     b = st.sweep_bwd_torch(grid, coeffs, en, dt, rgb, t, d_rgb, d_t,
@@ -227,8 +227,12 @@ def test_bwd_wrapper_runs_twin_on_cpu():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(views=2), dict(ring=("data", 2, 1))])
+@pytest.mark.parametrize("kw", [dict(views=2, ring=("data", 2, 1)),
+                                dict(ring=("data", 2, 1))])
 def test_sweep_op_refuses_later_slices(kw):
+    """The ring backward (B11, a view batch's backward with an in-kernel
+    ring all-reduce) is the multi-GPU slice's; a view batch alone is
+    ported (tests/test_torch_view_batch.py)."""
     with pytest.raises(NotImplementedError, match="slice"):
         tvjp.sweep_op(False, 1.0, 0.0, "torch", **kw)
 

@@ -101,7 +101,7 @@ def test_train_step_matches_jax(scene, light):
     params, mu, nu, count = _state(shape)
     jkey = sorted(jfit.group_views(jcams, shape))[1]
     idxs, stacked, band, tiling = jfit.group_views(jcams, shape)[jkey]
-    tidx, tstacked, _ = tfit.group_views(tcams, shape)[jkey[:2]]
+    tidx, tstacked, _ = tfit.group_views(tcams, shape)[jkey]
     assert tidx == idxs
     pick, r0s = np.array([0, 2, 1]), np.zeros(3, np.int32)
     out = {}
@@ -119,7 +119,7 @@ def test_train_step_matches_jax(scene, light):
                               jnp.asarray(pick), jnp.asarray(r0s))
         tparams, tstate = train_state_from_numpy(params, mu, nu, count,
                                                  device="cpu")
-        tstep = tfit.make_train_step(jkey[:2], 3, topt, RCFG, True, None,
+        tstep = tfit.make_train_step(jkey, 3, topt, RCFG, True, None,
                                      lighting=tl)
         tp, ts, tloss = tstep(tparams, None if name == "grad" else tstate,
                               tstacked, torch.as_tensor(targets[tidx]),
@@ -194,19 +194,63 @@ def test_params_to_grid_and_init_params_match(softplus):
 
 
 def test_group_views_keys_match(scene):
-    """The port groups by (axis, reverse); the JAX package's groups, merged
-    over its tile classes, hold the same views."""
+    """The port's groups are the JAX package's: the same keys (axis,
+    reverse, tile class) and the same views in each."""
     shape, jcams, tcams, _ = scene
-    merged = {}
-    for (axis, rev, _), (idxs, *_rest) in jfit.group_views(
-            jcams, shape).items():
-        merged.setdefault((axis, rev), []).extend(idxs)
+    jg = jfit.group_views(jcams, shape)
     tg = tfit.group_views(tcams, shape)
-    assert {k: sorted(v) for k, v in merged.items()} == {
-        k: v[0] for k, v in tg.items()}
+    assert sorted(tg) == sorted(jg)
+    assert {k: v[0] for k, v in tg.items()} == {k: v[0] for k, v in jg.items()}
     for key, (idxs, stacked, band) in tg.items():
         assert stacked["coeffs"].shape == (len(idxs), 4, N)
         assert stacked["uv"].shape == (len(idxs), RES, RES, 2)
+
+
+@pytest.fixture(scope="module")
+def two_classes():
+    """Four views of one sweep signature (axis z, forward) over 128-wide
+    grid planes: two near-axial cameras whose slopes (about 0.9) take the
+    JAX package's 128 tiles and two oblique ones (slopes about 2.2) that
+    take its dense kernels, so its groups split the signature in two."""
+    rng = np.random.default_rng(5)
+    shape = (8, 128, 128, 4)
+    gt = rng.random(shape, dtype=np.float32) * 0.4
+    c = (3.5, 63.5, 63.5)  # (z, y, x) grid center
+    eyes = [(c[2] + dx, c[1], -150.0) for dx in (-6.0, 6.0)] + [
+        (c[2] + dx, c[1], -300.0) for dx in (130.0, 145.0)]
+    jcams = [look_at_perspective(e, (c[2], c[1], c[0]), res_x=128,
+                                 res_y=128) for e in eyes]
+    tcams = [camera_from_fields(type(j).__name__, **dataclasses.asdict(j))
+             for j in jcams]
+    targets = np.array(jfit.render_all_views(gt, jcams, JRCFG))
+    return shape, jcams, tcams, targets
+
+
+def test_group_views_splits_tile_classes(two_classes):
+    shape, jcams, tcams, _ = two_classes
+    jg = jfit.group_views(jcams, shape)
+    tg = tfit.group_views(tcams, shape)
+    assert sorted(tg) == sorted(jg) == [(2, False, ()),
+                                        (2, False, (128, 128))]
+    assert {k: v[0] for k, v in tg.items()} == {
+        (2, False, ()): [2, 3], (2, False, (128, 128)): [0, 1]}
+    assert {k: v[0] for k, v in jg.items()} == {k: v[0] for k, v in tg.items()}
+
+
+def test_fit_grid_two_tile_classes_matches_jax(two_classes, tmp_path):
+    """``fit_grid`` on an orbit whose views span two tile classes draws the
+    same groups and views as the JAX trainer: two steps (one per group),
+    losses to 1e-6 relative."""
+    shape, jcams, tcams, targets = two_classes
+    params, _, _, _ = _state(shape, seed=8)
+    kw = dict(lr=2e-2, steps=2, views_per_batch=2, ckpt_every=0, seed=3)
+    _, _, jh = jfit.fit_grid(targets, jcams, shape, JTrainConfig(**kw),
+                             JRCFG, run_dir=str(tmp_path / "j"),
+                             params_init=params)
+    _, _, th = tfit.fit_grid(targets, tcams, shape, TrainConfig(**kw), RCFG,
+                             run_dir=str(tmp_path / "t"),
+                             params_init=params, device="cpu")
+    np.testing.assert_allclose(th["loss"], jh["loss"], rtol=1e-6, atol=0)
 
 
 def test_band_warp_matches(scene):

@@ -1,41 +1,59 @@
 // Forward plane sweep: front-to-back emission-absorption compositing of a
-// (S, 4, Y, X) grid along S, one thread per intermediate ray.
+// (S, 4, Y, X) grid along S, one thread per intermediate ray, over a batch
+// of one or more views whose intermediate planes are stacked along V.
 //
-// Replaces two TPU kernels of the JAX package that compute one function:
+// Replaces three TPU kernels of the JAX package that compute one function:
 //   B1 _sweep_fwd_kernel         tpuvr/kernels/sweep.py:179 (dense)
 //   B7 _sweep_fwd_banded_kernel  tpuvr/kernels/sweep.py:491 (banded: skips
 //                                the zero taps of the same tent operators)
-// Both resample each slice as A . S_c . B with tent matrices on the MXU. Here
-// each ray fetches the 2x2 taps those matrices encode (tent.cuh): 4 taps x 4
-// channels per ray and slice instead of Y + X multiply-adds.
+//   B3 _sweep_fwd_dbatch_kernel  tpuvr/kernels/sweep.py:270 (the dense
+//                                view-batched route, sweep.py:746-808, with
+//                                the per-row positions of batch_positions,
+//                                sweep.py:397)
+// All resample each slice as A . S_c . B with tent matrices on the MXU; B3
+// streams the grid from HBM once for all views with one (V_total, Y) tent
+// matrix built from a per-row position vector. Here each ray fetches the
+// 2x2 taps those matrices encode (tent.cuh): 4 taps x 4 channels per ray
+// and slice instead of Y + X multiply-adds.
 //
-// Per traversal step k (grid slice S-1-k when reverse):
-//   pos_y = v*ay[k] + by[k], pos_x = u*ax[k] + bx[k]            (f32)
+// The launch grid carries the view w as blockIdx.z, so a block never spans
+// two views and holds only its view's (5, S) scalars (ay, by, ax, bx,
+// enable) in shared memory, 40 KB at S = 2048. Ray (w, v, u) is stacked row
+// w * Vp + v. Per traversal step k (grid slice S-1-k when reverse):
+//   pos_y = v*ay[w,k] + by[w,k], pos_x = u*ax[w,k] + bx[w,k]     (f32)
 //   (sigma, r, g, b) = tent samples; sigma = max(sigma, 0)
-//   att = expf(-(s*sigma)*dt[v,u]);  rgb += T*(1-att)*(r,g,b);  T *= att
-// A step with en[k] == 0 is skipped, which is bit-identical to sigma*0; so is
-// a step whose position lies outside the tents' support (all taps read 0).
-// rgb and T stay in registers and are written once.
+//   att = expf(-(s*sigma)*dt[w,v,u]);  rgb += T*(1-att)*(r,g,b);  T *= att
+// The row v is local to its view (batch_positions' form), so a view's rays
+// are bit-identical whatever the batch. A step with en[w,k] == 0 is skipped,
+// which is bit-identical to sigma*0 (and is what parking a disabled view's
+// rows at -3*n_y does on the TPU); so is a step whose position lies outside
+// the tents' support (all taps read 0). rgb and T stay in registers and are
+// written once.
 //
 // Fused softplus (template flag SP, the trainer's raw-parameter layout-
 // resident mode): each density tap is softplus'd before resampling, in the
 // JAX kernels' form max(x, 0) + logf(1 + expf(-|x|)) (tent.cuh).
 //
 // Early ray termination: with eps > 0 each ray stops once its own T < eps.
-// The plain twin (and the JAX package) stop every ray when the global max T
-// falls below eps. For any one ray the two differ only by the contributions
-// made after its own T fell below eps, so
+// The plain twin (and the JAX package) stop every ray of a view when the
+// global max T falls below eps; B3 keeps per-view state at block
+// granularity. For any one ray they differ only by the contributions made
+// after its own T fell below eps, so
 //   |d rgb| <= eps * max|c|   and   |d T| <= eps,
 // which is the tolerance used against the twin at eps > 0. At eps = 0 the
 // kernel matches the twin to f32 roundoff.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 67 TFLOP/s f32): at the headline
-// frame (S = Y = X = 256, V = U = 512) one pass over the grid is 268 MB plus
-// about 5 MB of dt and outputs, about 82 us; the arithmetic (about 67 M
-// ray-slices x about 40 flops) is about 40 us. So it is bound by bytes. What
-// this simple form really requests is 67 M ray-slices x 16 taps x 4 B, about
-// 4.3 GB through L1/L2; a channel-interleaved copy of the grid or staged slice
-// windows would cut that, and are left for later.
+// frame (S = Y = X = 256, one view at 512^2) one pass over the grid is
+// 268 MB plus about 5 MB of dt and outputs, about 82 us; the arithmetic
+// (about 67 M ray-slices x about 40 flops) is about 40 us. At the c4
+// minibatch (8 views at 256^2) the same pass plus 10 MB, about 83 us, and
+// 134 M ray-slices, about 80 us. So it is bound by bytes. What this simple
+// form really requests is 16 taps x 4 B per ray-slice through L1/L2 (4.3 GB
+// at the headline), and each view's rays cross the grid along other lines,
+// so the views share no cache lines by construction; a channel-interleaved
+// copy of the grid or staged slice windows would cut that, and are left for
+// later.
 #include <cuda_runtime.h>
 
 #include "tent.cuh"
@@ -49,15 +67,17 @@ constexpr int kBlockV = 8;
 template <int P, bool SP>
 __global__ void __launch_bounds__(kBlockU * kBlockV)
 sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
-                 const float* __restrict__ scal,  // (5, S): ay by ax bx en
-                 const float* __restrict__ dt,    // (V, U)
-                 float* __restrict__ rgb,         // (3, V, U)
-                 float* __restrict__ trans,       // (V, U)
-                 int S, int Y, int X, int V, int U, int reverse,
+                 const float* __restrict__ scal,  // (views, 5, S)
+                 const float* __restrict__ dt,    // (views*Vp, U)
+                 float* __restrict__ rgb,         // (3, views*Vp, U)
+                 float* __restrict__ trans,       // (views*Vp, U)
+                 int S, int Y, int X, int Vp, int U, int views, int reverse,
                  float sigma_scale, float eps) {
-  extern __shared__ float sm[];  // the (5, S) per-slice scalars
+  extern __shared__ float sm[];  // this view's (5, S) scalars
+  const int w = blockIdx.z;
+  const float* sw = scal + static_cast<size_t>(w) * 5 * S;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < 5 * S; i += blockDim.x * blockDim.y) sm[i] = scal[i];
+  for (int i = tid; i < 5 * S; i += blockDim.x * blockDim.y) sm[i] = sw[i];
   __syncthreads();
   const float* ay = sm;
   const float* by = sm + S;
@@ -67,10 +87,10 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
 
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
   const int v = blockIdx.y * blockDim.y + threadIdx.y;
-  if (u >= U || v >= V) return;
+  if (u >= U || v >= Vp) return;
 
   const size_t plane = static_cast<size_t>(Y) * X;
-  const size_t ray = static_cast<size_t>(v) * U + u;
+  const size_t ray = (static_cast<size_t>(w) * Vp + v) * U + u;
   const float dtr = dt[ray];
   const float fv = static_cast<float>(v);
   const float fu = static_cast<float>(u);
@@ -90,24 +110,16 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
     const float* sl = grid + static_cast<size_t>(reverse ? S - 1 - k : k) *
                                  4 * plane;
     float smp[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float* ch = sl + c * plane;
-      const bool sp = SP && c == 0;
-      smp[c] = tent_sample<P>(ty, tx, [ch, X, sp](int y, int x) {
-        const float g = ch[static_cast<size_t>(y) * X + x];
-        return sp ? softplus(g) : g;
-      });
-    }
+    sample_slice<P, SP>(sl, plane, X, ty, tx, smp);
     const float sigma = fmaxf(smp[0], 0.0f);
     const float att = expf(-__fmul_rn(__fmul_rn(sigma_scale, sigma), dtr));
-    const float w = __fmul_rn(t, __fsub_rn(1.0f, att));
-    c0 = __fadd_rn(c0, __fmul_rn(w, smp[1]));
-    c1 = __fadd_rn(c1, __fmul_rn(w, smp[2]));
-    c2 = __fadd_rn(c2, __fmul_rn(w, smp[3]));
+    const float wt = __fmul_rn(t, __fsub_rn(1.0f, att));
+    c0 = __fadd_rn(c0, __fmul_rn(wt, smp[1]));
+    c1 = __fadd_rn(c1, __fmul_rn(wt, smp[2]));
+    c2 = __fadd_rn(c2, __fmul_rn(wt, smp[3]));
     t = __fmul_rn(t, att);
   }
-  const size_t out_plane = static_cast<size_t>(V) * U;
+  const size_t out_plane = static_cast<size_t>(views) * Vp * U;
   rgb[ray] = c0;
   rgb[out_plane + ray] = c1;
   rgb[2 * out_plane + ray] = c2;
@@ -116,32 +128,34 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
 
 template <int P, bool SP>
 cudaError_t launch(const float* grid, const float* scal, const float* dt,
-                   float* rgb, float* trans, int S, int Y, int X, int V, int U,
-                   int reverse, float sigma_scale, float eps,
-                   cudaStream_t stream) {
+                   float* rgb, float* trans, int S, int Y, int X, int Vp,
+                   int U, int views, int reverse, float sigma_scale,
+                   float eps, cudaStream_t stream) {
   const dim3 block(kBlockU, kBlockV);
-  const dim3 blocks((U + kBlockU - 1) / kBlockU, (V + kBlockV - 1) / kBlockV);
+  const dim3 blocks((U + kBlockU - 1) / kBlockU, (Vp + kBlockV - 1) / kBlockV,
+                    views);
   const size_t smem = 5 * static_cast<size_t>(S) * sizeof(float);
   sweep_fwd_kernel<P, SP><<<blocks, block, smem, stream>>>(
-      grid, scal, dt, rgb, trans, S, Y, X, V, U, reverse, sigma_scale, eps);
+      grid, scal, dt, rgb, trans, S, Y, X, Vp, U, views, reverse,
+      sigma_scale, eps);
   return cudaGetLastError();
 }
 
 template <bool SP>
-int dispatch(const float* grid, const float* scal, const float* dt,
-             float* rgb, float* trans, int S, int Y, int X, int V, int U,
-             int reverse, float sigma_scale, float eps, int precision,
-             cudaStream_t stream) {
+int dispatch(int precision, const float* grid, const float* scal,
+             const float* dt, float* rgb, float* trans, int S, int Y, int X,
+             int Vp, int U, int views, int reverse, float sigma_scale,
+             float eps, cudaStream_t stream) {
   switch (precision) {
     case kHighest:
-      return launch<kHighest, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                                  reverse, sigma_scale, eps, stream);
+      return launch<kHighest, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
+                                  views, reverse, sigma_scale, eps, stream);
     case kHigh:
-      return launch<kHigh, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                               reverse, sigma_scale, eps, stream);
+      return launch<kHigh, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
+                               views, reverse, sigma_scale, eps, stream);
     case kDefault:
-      return launch<kDefault, SP>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                                  reverse, sigma_scale, eps, stream);
+      return launch<kDefault, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
+                                  views, reverse, sigma_scale, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -151,16 +165,20 @@ int dispatch(const float* grid, const float* scal, const float* dt,
 }  // namespace tpuvr
 
 // C entry: launches on `stream`, allocates nothing, does not synchronise.
-// Returns the CUDA error of the launch (0 on success).
+// `scal` is (views, 5, S); dt and the outputs stack `views` planes of Vp
+// rows (views = 1: one view). Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int tpuvr_sweep_fwd(const float* grid, const float* scal,
                                const float* dt, float* rgb, float* trans,
-                               int S, int Y, int X, int V, int U, int reverse,
-                               float sigma_scale, float eps, int precision,
-                               int softplus, cudaStream_t stream) {
+                               int S, int Y, int X, int Vp, int U, int views,
+                               int reverse, float sigma_scale, float eps,
+                               int precision, int softplus,
+                               cudaStream_t stream) {
   using namespace tpuvr;
   return softplus
-             ? dispatch<true>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                              reverse, sigma_scale, eps, precision, stream)
-             : dispatch<false>(grid, scal, dt, rgb, trans, S, Y, X, V, U,
-                               reverse, sigma_scale, eps, precision, stream);
+             ? dispatch<true>(precision, grid, scal, dt, rgb, trans, S, Y, X,
+                              Vp, U, views, reverse, sigma_scale, eps, stream)
+             : dispatch<false>(precision, grid, scal, dt, rgb, trans, S, Y,
+                               X, Vp, U, views, reverse, sigma_scale, eps,
+                               stream);
 }

@@ -92,6 +92,24 @@ __device__ __forceinline__ float softplus(float x) {
   return __fadd_rn(fmaxf(x, 0.0f), logf(__fadd_rn(1.0f, expf(-fabsf(x)))));
 }
 
+// The four channel samples (sigma, r, g, b) of one (4, Y, X) slice at
+// (ty, tx) in tier P, the density taps softplus'd first when SP: the fetch
+// of the forward and backward sweeps, operation for operation.
+template <int P, bool SP>
+__device__ __forceinline__ void sample_slice(const float* sl, size_t plane,
+                                             int X, const Taps& ty,
+                                             const Taps& tx, float smp[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* ch = sl + c * plane;
+    const bool sp = SP && c == 0;
+    smp[c] = tent_sample<P>(ty, tx, [ch, X, sp](int y, int x) {
+      const float g = ch[static_cast<size_t>(y) * X + x];
+      return sp ? softplus(g) : g;
+    });
+  }
+}
+
 // d softplus / dx, chained into the raw parameters' density gradient.
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));

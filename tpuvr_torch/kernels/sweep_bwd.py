@@ -2,28 +2,37 @@
 
 :func:`sweep_bwd` has the signature of the plain twin
 :func:`~tpuvr_torch.kernels.sweep_torch.sweep_bwd_torch` (and of the JAX
-package's ``sweep_bwd``). For CUDA tensors it launches the kernel (or
-raises); for CPU tensors it runs the twin.
+package's ``sweep_bwd``), one view or a view batch. For CUDA tensors it
+launches the kernel (or raises); for CPU tensors it runs the twin, or
+:func:`~tpuvr_torch.kernels.sweep_torch.sweep_bwd_views_torch` for a
+view batch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from tpuvr_torch.kernels import _build
-from tpuvr_torch.kernels.sweep import _MAX_SLICES, _check
+from tpuvr_torch.kernels.sweep import (
+    _check,
+    check_sweep,
+    scalar_table,
+    view_rows,
+)
 from tpuvr_torch.kernels.sweep_torch import (
     PRECISIONS,
     sweep_bwd_torch,
+    sweep_bwd_views_torch,
     sweep_dbias,
 )
 
 # Kernel launches so far (one per call; each call issues two CUDA launches
-# per slab of slices); a run reads it to show that it went through the
-# kernel.
-launches = 0
+# per slab of slices), by the view count of the call; a run reads it to
+# show that it went through the kernel.
+launches: collections.Counter[int] = collections.Counter()
 
 # Cotangent samples held per slab: slab * V * U float4, at most this many
 # floats (64 MB).
@@ -32,7 +41,7 @@ _SLAB_FLOATS = 1 << 24
 
 def _entry():
     fn = _build.load("sweep_bwd").tpuvr_sweep_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -48,37 +57,30 @@ def slab_slices(s: int, n_v: int, n_u: int) -> int:
 def sweep_bwd(
     grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color, d_trans,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest", softplus=False, carry=None,
+    precision="highest", softplus=False, carry=None, views=1,
 ):
     """Gradient of the forward sweep with respect to ``grid_sc``.
 
     Returns the (S, 4, Y, X) gradient, or ``(grad, (trans_fin, q_fin))``
-    when a ``carry`` (trans0, q0) is given. With ``early_stop_eps`` > 0
-    the kernel gives a ray zero gradient after its own T < eps, as the
-    forward kernel stops it there; the twin stops all rays at the global
-    maximum.
+    when a ``carry`` (trans0, q0) is given. ``views`` > 1: a view batch as
+    in :func:`~tpuvr_torch.kernels.sweep.sweep_fwd` (ray planes and carry
+    stacked along V); the gradient is the sum over the views. With
+    ``early_stop_eps`` > 0 the kernel gives a ray zero gradient after its
+    own T < eps, as the forward kernel stops it there; the twin stops all
+    rays (of a view) at the global maximum.
     """
-    global launches
+    kw = dict(reverse=reverse, sigma_scale=sigma_scale,
+              early_stop_eps=early_stop_eps, precision=precision,
+              softplus=softplus, carry=carry)
+    args = (grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color,
+            d_trans)
     if not grid_sc.is_cuda:
-        return sweep_bwd_torch(
-            grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color,
-            d_trans, reverse=reverse, sigma_scale=sigma_scale,
-            early_stop_eps=early_stop_eps, precision=precision,
-            softplus=softplus, carry=carry,
-        )
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-    if grid_sc.dim() != 4 or grid_sc.shape[1] != 4:
-        raise ValueError(f"grid_sc must be (S, 4, Y, X), got "
-                         f"{tuple(grid_sc.shape)}")
-    s, _, n_y, n_x = grid_sc.shape
-    if not 0 < s <= _MAX_SLICES:
-        raise ValueError(f"{s} slices; the kernel takes 1..{_MAX_SLICES}")
-    if dt_map.dim() != 2:
-        raise ValueError(f"dt_map must be (V, U), got {tuple(dt_map.shape)}")
-    n_v, n_u = dt_map.shape
-    if min(n_y, n_x, n_v, n_u) <= 0:
-        raise ValueError("empty grid plane or image")
+        if views == 1:
+            return sweep_bwd_torch(*args, **kw)
+        view_rows(views, dt_map.shape[0])
+        return sweep_bwd_views_torch(*args, views=views, **kw)
+    s, n_y, n_x, n_v, n_u, v_pv = check_sweep(grid_sc, dt_map, precision,
+                                              views)
     dev = grid_sc.device
     if carry is None:
         trans0 = torch.ones((n_v, n_u), dtype=torch.float32, device=dev)
@@ -92,10 +94,7 @@ def sweep_bwd(
         ("trans0", trans0, (n_v, n_u)), ("q0", q0, (n_v, n_u)),
     ):
         _check(name, t, shape, dev)
-    for name, t in zip(("ay", "by", "ax", "bx", "enables"),
-                       (*coeffs, enables)):
-        _check(name, t, (s,), dev)
-    scal = torch.stack((*coeffs, enables))
+    scal = scalar_table(coeffs, enables, views, s, dev)
     dbias = sweep_dbias(d_color, c_final, d_trans, t_final).contiguous()
     grid_sc, dt_map, d_color, trans0, q0 = (
         t.contiguous() for t in (grid_sc, dt_map, d_color, trans0, q0))
@@ -109,15 +108,15 @@ def sweep_bwd(
             grid_sc.data_ptr(), scal.data_ptr(), dt_map.data_ptr(),
             dbias.data_ptr(), d_color.data_ptr(), trans0.data_ptr(),
             q0.data_ptr(), grad.data_ptr(), trans_fin.data_ptr(),
-            q_fin.data_ptr(), ds.data_ptr(),
-            slab, s, n_y, n_x, n_v, n_u, int(bool(reverse)),
+            q_fin.data_ptr(), ds.data_ptr(), slab, s, n_y, n_x, v_pv, n_u,
+            views, int(bool(reverse)),
             float(sigma_scale), float(early_stop_eps),
             PRECISIONS.index(precision), int(bool(softplus)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"sweep_bwd kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches[views] += 1
     if carry is None:
         return grad
     return grad, (trans_fin, q_fin)

@@ -229,3 +229,49 @@ def sweep_bwd_torch(
     if carry is None:
         return grad
     return grad, (trans, q)
+
+
+def sweep_fwd_views_torch(grid_sc, coeffs, enables, dt_map, *, views, **kw):
+    """View-batched forward sweep: the views' intermediate planes stacked
+    along V (``dt_map`` (views * V, U)), coeffs four (views, S) tensors and
+    enables (views, S). A loop of :func:`sweep_fwd_torch` over the views
+    with stacked outputs, as the JAX package's ``_xla_views_fwd``."""
+    ay, by, ax, bx = coeffs
+    n_v = dt_map.shape[0] // views
+    rgbs, ts = [], []
+    for w in range(views):
+        rgb, t = sweep_fwd_torch(
+            grid_sc, (ay[w], by[w], ax[w], bx[w]), enables[w],
+            dt_map[w * n_v:(w + 1) * n_v], **kw)
+        rgbs.append(rgb)
+        ts.append(t)
+    return torch.cat(rgbs, dim=1), torch.cat(ts, dim=0)
+
+
+def sweep_bwd_views_torch(
+    grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color, d_trans,
+    *, views, carry=None, **kw,
+):
+    """Gradient of :func:`sweep_fwd_views_torch`: the per-view gradients of
+    :func:`sweep_bwd_torch`, summed in view order. ``carry`` (trans0, q0)
+    is (views * V, U), as the outputs; with it the call returns
+    ``(grad, (trans_fin, q_fin))``. Mirrors ``_xla_views_bwd``."""
+    ay, by, ax, bx = coeffs
+    n_v = dt_map.shape[0] // views
+    grad = None
+    t_fins, q_fins = [], []
+    for w in range(views):
+        sl = slice(w * n_v, (w + 1) * n_v)
+        c_w = None if carry is None else (carry[0][sl], carry[1][sl])
+        out = sweep_bwd_torch(
+            grid_sc, (ay[w], by[w], ax[w], bx[w]), enables[w], dt_map[sl],
+            c_final[:, sl], t_final[sl], d_color[:, sl], d_trans[sl],
+            carry=c_w, **kw)
+        if carry is not None:
+            out, (t_f, q_f) = out
+            t_fins.append(t_f)
+            q_fins.append(q_f)
+        grad = out if grad is None else grad + out
+    if carry is None:
+        return grad
+    return grad, (torch.cat(t_fins, dim=0), torch.cat(q_fins, dim=0))

@@ -5,7 +5,9 @@
 (rgb, T), with no per-slice activations; gradients flow to the grid only,
 and camera geometry (coeffs, dt) and the occupancy enables get none. With
 ``impl='cuda'`` both directions are the CUDA kernels; with ``impl='torch'``
-both are the plain twins, which run wherever their tensors are.
+both are the plain twins, which run wherever their tensors are. A view
+batch (``views`` > 1) goes to the same kernels over all its views in one
+launch each way, or to the view-batched twins.
 """
 
 from __future__ import annotations
@@ -14,7 +16,12 @@ import torch
 
 from tpuvr_torch.kernels.sweep import sweep_fwd
 from tpuvr_torch.kernels.sweep_bwd import sweep_bwd
-from tpuvr_torch.kernels.sweep_torch import sweep_bwd_torch, sweep_fwd_torch
+from tpuvr_torch.kernels.sweep_torch import (
+    sweep_bwd_torch,
+    sweep_bwd_views_torch,
+    sweep_fwd_torch,
+    sweep_fwd_views_torch,
+)
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -77,15 +84,17 @@ def sweep_op(
     sweeps apply softplus per slice and the gradient is with respect to
     the raw parameters. ``bwd_chunks`` > 1 runs the backward slab by slab
     along the slice axis, threading the (trans, q) recompute carry.
+    ``views`` > 1: the operands are a view batch, as the JAX package's
+    (coeffs and enables (views, S), ray planes stacked along V), marched
+    in one call each way; the gradient is the sum over the views.
     """
-    if views != 1:
-        raise NotImplementedError("view-batched sweeps (views > 1) land "
-                                  "with slice 3 of the port (B3, B4)")
     if ring is not None:
         raise NotImplementedError("the ring backward lands with the "
                                   "multi-GPU slice of the port (B11)")
     if impl == "cuda":
         fwd, bwd = sweep_fwd, sweep_bwd
+    elif impl == "torch" and views > 1:
+        fwd, bwd = sweep_fwd_views_torch, sweep_bwd_views_torch
     elif impl == "torch":
         fwd, bwd = sweep_fwd_torch, sweep_bwd_torch
     else:
@@ -93,6 +102,8 @@ def sweep_op(
     kw = dict(reverse=reverse, sigma_scale=sigma_scale,
               early_stop_eps=early_stop_eps, precision=precision,
               softplus=softplus)
+    if views > 1:
+        kw["views"] = int(views)
     spec = (fwd, bwd, kw, int(bwd_chunks))
 
     def op(grid_sc, coeffs, enables, dt_map):
@@ -105,7 +116,9 @@ def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
                  trans, d_rgb, d_trans, kw):
     """Slab-chunked backward: chunks follow traversal order (chunk 0 holds
     the first slices the rays hit), so the (trans, q) carry threads
-    forward; the slabs are put back in grid order for ``reverse``."""
+    forward; the slabs are put back in grid order for ``reverse``. The
+    traversal range is cut on the last dim of the coefficients and
+    enables, so (S,) and a view batch's (views, S) both work."""
     s = grid_sc.shape[0]
     if s % n_chunks:
         raise ValueError(f"bwd_chunks {n_chunks} must divide slices {s}")
@@ -120,8 +133,8 @@ def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
         tr = slice(g * sc, (g + 1) * sc)  # traversal-step range
         g_lo = (s - (g + 1) * sc) if kw["reverse"] else g * sc
         grad_g, carry = bwd_fn(
-            grid_sc[g_lo:g_lo + sc], tuple(c[tr] for c in coeffs),
-            enables[tr], dt_map, rgb, trans, d_rgb, d_trans,
+            grid_sc[g_lo:g_lo + sc], tuple(c[..., tr] for c in coeffs),
+            enables[..., tr], dt_map, rgb, trans, d_rgb, d_trans,
             carry=carry, **kw,
         )
         parts.append(grad_g)

@@ -3,13 +3,17 @@
 ``fit_grid`` runs Adam on the grid against the L2 image loss of posed
 views, on one device:
 
-- views are grouped by their sweep signature (axis, reverse); the
-  per-view geometry is data (``tpuvr_torch.ops.geometry.view_geometry``),
-  staged on the device once per group;
-- each step renders a minibatch of one group's views view by view through
-  the differentiable sweep op (forward and backward kernels on the card),
-  warps each to pixels and updates the grid; groups rotate per step, or
-  per block of ``steps_per_call`` steps;
+- views are grouped by their sweep signature (axis, reverse) and the JAX
+  package's banded tile class, as that package groups them; the per-view
+  geometry is data (``tpuvr_torch.ops.geometry.view_geometry``), staged on
+  the device once per group;
+- each step renders a minibatch of one group's views through the
+  differentiable sweep op: a minibatch of more than one view in one
+  view-batched sweep (one forward and one backward kernel on the card),
+  as the JAX package does, unless ``TPUVR_VIEW_BATCH=0`` (that package's
+  switch) asks for the view-by-view loop. Each view is then warped to
+  pixels and the grid is updated; groups rotate per step, or per block of
+  ``steps_per_call`` steps;
 - density is parameterized through softplus by default. In the fused mode
   the training state (params and Adam moments) stays in the current
   group's sweep layout and the kernels apply softplus per slice, so no
@@ -17,16 +21,17 @@ views, on one device:
   re-laid out when the group changes.
 
 The minibatch draws follow the JAX package's ``fit_grid`` exactly (the
-same numpy generator and calls), so the two trainers see the same views.
-Checkpoints (``tpuvr_torch.train.ckpt``) and metrics JSONL go to the run
-directory. Multi-device training (a mesh) and the view-batched sweep are
-later slices of the port and raise here.
+same groups, numpy generator and calls), so the two trainers see the same
+views. Checkpoints (``tpuvr_torch.train.ckpt``) and metrics JSONL go to
+the run directory. Multi-device training (a mesh) is a later slice of the
+port and raises here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -49,12 +54,14 @@ from tpuvr_torch.ops.render import (
 )
 from tpuvr_torch.ops.vjp import resolve_impl, sweep_op
 from tpuvr_torch.ref.camera import dominant_axis
+from tpuvr_torch.ref.march import GRID_PERM
 from tpuvr_torch.train.ckpt import Checkpointer
 from tpuvr_torch.utils.metrics import MetricsLogger, psnr
 
 log = logging.getLogger("tpuvr_torch")
 
 _SOFTPLUS_INV_001 = float(np.log(np.expm1(0.01)))  # raw init -> sigma 0.01
+_TILE = 128  # the JAX package's banded tile edge (band_tiles)
 
 
 def params_to_grid(params, density_softplus: bool):
@@ -115,21 +122,57 @@ class Adam:
         return adam_update(grads, state, self.lr, self.b1, self.b2, self.eps)
 
 
-def group_views(cams, grid_shape):
+def band_tiles(band, n_v, n_u, n_y, n_x):
+    """A copy of the JAX package's banded tile class (``band_tiles`` in its
+    ``kernels/sweep.py``): output-tile sizes (tile_v, tile_u) whose tap
+    band fits a 128-wide window, or None (its dense kernels). It only
+    mirrors that package's grouping of views: the port's kernels have no
+    tiles, but :func:`group_views` keys on this class so that the two
+    trainers draw the same minibatches.
+
+    ``band`` is (max |ay|, max |ax|, ...) from ``view_geometry``; a 128
+    tile takes slopes up to about 0.93, a 64 tile up to about 1.87.
+    """
+    if band is None:
+        return None
+    if n_y < _TILE or n_x < _TILE or n_y % 8 or n_x % 8:
+        return None
+
+    def pick(slope, n_out):
+        for tile in (_TILE, _TILE // 2):
+            if n_out % tile == 0 and slope <= (_TILE - 10) / (tile - 1):
+                return tile
+        return None
+
+    tile_v = pick(band[0], n_v)
+    tile_u = pick(band[1], n_u)
+    if tile_v is None or tile_u is None:
+        return None
+    return tile_v, tile_u
+
+
+def group_views(cams, grid_shape, rays_per_view: Optional[int] = None):
     """Group cameras by sweep signature and stack their geometry (on the
     host).
 
-    Returns {(axis, reverse): (view_indices, stacked_geom, band)} with
-    ``band`` the group's (max |ay|, max |ax|, min |ay|, min |ax|). The JAX
-    package also keys on the banded kernels' tile class and plans a tiled
-    pixel warp per group; this port has neither (its sweep kernels have no
-    tile classes, and its warp is the 4-tap gather), so it groups by
-    (axis, reverse) alone.
+    Returns {(axis, reverse, tiles): (view_indices, stacked_geom, band)}
+    with ``band`` the group's (max |ay|, max |ax|, min |ay|, min |ax|).
+    ``tiles`` is the JAX package's per-view banded tile class of the rows a
+    step sweeps (the ``rays_per_view`` band, else every row), () for its
+    dense class: the port's kernels have no tiles, but keying on the class
+    as the JAX package does gives both trainers the same groups, hence the
+    same minibatches.
     """
-    groups: Dict[Tuple[int, bool], Tuple[List, List, List]] = {}
+    groups: Dict[Tuple[int, bool, tuple], Tuple[List, List, List]] = {}
     for i, cam in enumerate(cams):
         axis, reverse, geom, band = view_geometry(cam, grid_shape)
-        idxs, geoms, bands = groups.setdefault((axis, reverse), ([], [], []))
+        n_v, n_u = geom["dt"].shape
+        dims_p = [grid_shape[d] for d in GRID_PERM[axis][:3]]
+        rows = band_rows(rays_per_view, n_v, n_u)
+        tiles = band_tiles(band, rows if rows is not None else n_v, n_u,
+                           dims_p[1], dims_p[2])
+        idxs, geoms, bands = groups.setdefault((axis, reverse, tiles or ()),
+                                               ([], [], []))
         idxs.append(i)
         geoms.append(geom)
         bands.append(band)
@@ -140,6 +183,15 @@ def group_views(cams, grid_shape):
         stacked = {k: torch.stack([g[k] for g in geoms]) for k in geoms[0]}
         out[key] = (idxs, stacked, band)
     return out
+
+
+def view_batch_eligible(k_views: int) -> bool:
+    """Does a group's step march its minibatch in one view-batched sweep?
+    Yes for more than one view, as in the JAX package, unless
+    ``TPUVR_VIEW_BATCH=0`` (that package's switch back to the view loop)."""
+    if k_views <= 1:
+        return False
+    return os.environ.get("TPUVR_VIEW_BATCH", "1") != "0"
 
 
 def band_rows(rays_per_view: Optional[int], n_v: int,
@@ -177,8 +229,9 @@ def make_train_step(
     rows: Optional[int] = None,
     kernel_softplus: bool = False,
     lighting=None,
+    view_batch: bool = False,
 ):
-    """One train step for a view group (axis, reverse), on one device.
+    """One train step for a view group (axis, reverse, ...), on one device.
 
     Returns ``step(params, opt_state, geom_all, targets_all, pick, r0s) ->
     (params, opt_state, loss)``: ``pick`` (n_views,) indexes the group's
@@ -186,6 +239,10 @@ def make_train_step(
     offsets (used when ``rows`` is set). The loss is the mean over the
     views of each view's image MSE (over the band's pixels with ``rows``).
 
+    ``view_batch`` (see :func:`view_batch_eligible`): march the whole
+    minibatch through one view-batched sweep, its planes stacked along V,
+    so the backward writes one summed grid gradient; the views are then
+    warped and their losses summed in the same order as the view loop.
     ``kernel_softplus``: ``params`` are the raw parameters already in this
     group's (S, 4, Y, X) sweep layout, and the kernels apply softplus per
     slice (every slice is then occupied). ``lighting``: bake the sky light
@@ -193,7 +250,7 @@ def make_train_step(
     the sweep (with ``lighting.detach=False`` the gradient flows through
     the shadows too).
     """
-    axis, reverse = key
+    axis, reverse = key[0], key[1]
     lit = lighting is not None and lighting.mode != "none"
     if kernel_softplus and (lit or not density_softplus):
         raise ValueError("the fused mode (kernel_softplus) needs softplus "
@@ -212,11 +269,8 @@ def make_train_step(
         return grid_sc, slice_enables(grid_sc, reverse,
                                       render_cfg.use_occupancy)
 
-    def view_loss(op, grid_sc, enables, geom_i, target, r0):
-        c = geom_i["coeffs"]
-        rgb, trans = op(grid_sc, (c[0], c[1], c[2], c[3]),
-                        enables * geom_i["valid"], geom_i["dt"])
-        inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+    def warp_loss(inter, geom_i, target, r0):
+        """Pixel warp of a (V, U, 4) intermediate image and its MSE."""
         if rows is None:
             img = warp_to_pixels_dynamic(inter, geom_i["lattice"],
                                          geom_i["uv"])[..., :3]
@@ -227,10 +281,28 @@ def make_train_step(
         mask = mask.to(err.dtype)
         return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
+    def inter_image(rgb, trans):
+        return torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+
+    def view_inters(op, grid_sc, enables, geom):
+        """Every view's (V, U, 4) intermediate image, one op call per view
+        or, with ``view_batch``, one call for the stacked batch."""
+        c = geom["coeffs"]  # (n_views, 4, S)
+        en = enables[None, :] * geom["valid"]  # (n_views, S)
+        dt = geom["dt"]  # (n_views, V, U)
+        if not view_batch:
+            return [inter_image(*op(grid_sc, tuple(c[i]), en[i], dt[i]))
+                    for i in range(n_views)]
+        rgb, trans = op(grid_sc, tuple(c.unbind(1)), en, dt.flatten(0, 1))
+        v_pv = dt.shape[1]
+        return [inter_image(r, t) for r, t in zip(rgb.split(v_pv, dim=1),
+                                                  trans.split(v_pv))]
+
     def step(params, opt_state, geom_all, targets_all, pick, r0s):
         op = sweep_op(reverse, render_cfg.sigma_scale,
                       render_cfg.early_stop_eps, resolve_impl(impl, params),
-                      render_cfg.precision, softplus=kernel_softplus)
+                      render_cfg.precision, softplus=kernel_softplus,
+                      views=n_views if view_batch else 1)
         pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
                                  device=params.device)
         geom = {k: v[pick_t] for k, v in geom_all.items()}
@@ -241,10 +313,10 @@ def make_train_step(
         with torch.enable_grad():
             grid_sc, enables = grid_and_enables(p)
             total = 0.0
-            for i in range(n_views):
+            for i, inter in enumerate(view_inters(op, grid_sc, enables,
+                                                  geom)):
                 geom_i = {k: v[i] for k, v in geom.items()}
-                total = total + view_loss(op, grid_sc, enables, geom_i,
-                                          targets[i], r0s[i])
+                total = total + warp_loss(inter, geom_i, targets[i], r0s[i])
             loss = total / n_views
             (grads,) = torch.autograd.grad(loss, p)
         updates, opt_state = opt.update(grads, opt_state)
@@ -352,7 +424,8 @@ def fit_grid(
     # move to the device once.
     groups = {
         k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band)
-        for k, (idxs, stacked, band) in group_views(cams, grid_shape).items()
+        for k, (idxs, stacked, band) in group_views(
+            cams, grid_shape, rays_per_view=cfg.rays_per_view).items()
     }
     group_keys = sorted(groups)
     lit = lighting is not None and lighting.mode != "none"
@@ -366,10 +439,11 @@ def fit_grid(
         n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
         rows = band_rows(cfg.rays_per_view, n_v, n_u)
         rows_by_key[key] = (rows, n_v)
+        k_views = min(cfg.views_per_batch, len(idxs))
         steps_fns[key] = make_train_step(
-            key, min(cfg.views_per_batch, len(idxs)), opt, render_cfg,
-            cfg.density_softplus, impl, rows=rows, kernel_softplus=fused,
-            lighting=lighting,
+            key, k_views, opt, render_cfg, cfg.density_softplus, impl,
+            rows=rows, kernel_softplus=fused, lighting=lighting,
+            view_batch=view_batch_eligible(k_views),
         )
     targets = _as_tensor(targets)
     targets_by_key = {
