@@ -12,8 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
      main paths' shapes (the backward sweep also against autograd of a
      per-ray-terminating plain forward at eps > 0; the sweep pair over the
      c4 minibatch, 8 views of one c4 group, also against the same kernels
-     run view by view), and the whole render path against device="cpu" on
-     a small input;
+     run view by view), the row-block warp pair (K7, K8) at the c4 row plans
+     against its plain versions and grid_sample (K8 also against itself over
+     two calls), and the whole render path against device="cpu" on a small
+     input;
   3. the render path at full size through the entry points (device=None):
      c1, c2 and the 256^3 @ 512^2 headline frame as frame loops, and c3 lit
      (16-direction light bake, then frames), timed with CUDA events;
@@ -22,12 +24,15 @@ Phases, in order; any failure raises and exits non-zero:
      layout-resident mode, each with the view-batched sweep (the default)
      and view by view (TPUVR_VIEW_BATCH=0); one batched step held against
      the same step through the plain versions and against the view-by-view
-     step; then a lit fit_grid with differentiable shadows at 128^3. Before
-     each main path the kernels' launch counts are set to 0, and they are
-     read after it;
+     step; the configured and fused runs again with the row-block warp
+     (TPUVR_WARP=rows), a rows step against the gather step, and
+     evaluate_psnr over the 64 views through render_views_grouped under
+     rows against the gather render; then a lit fit_grid with
+     differentiable shadows at 128^3. Before each main path the kernels'
+     launch counts are set to 0, and they are read after it;
   5. print one JSON line per kernel (time, bound, plain and library
-     yardsticks), the card's name and power limit from nvidia-smi, and last
-     {"ok": true, "device": {...}}.
+     yardsticks), the cards nvidia-smi lists, the card's name and power
+     limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
 """
 
@@ -53,6 +58,9 @@ TAU_FLOPS_PER_VOXEL = 20     # tent weights, 4 taps, relu/fma, row+column
 # Backward sweep per sample: the forward's recompute (40), the adjoint
 # arithmetic (about 30), and the transposed resample of 4 channels (40).
 BWD_FLOPS_PER_SAMPLE = 110
+# Row warp per pixel and channel, either way: 4 tap products and 3 sums, and
+# the pixel's 4 tent weights shared over the channels.
+WARP_FLOPS_PER_SAMPLE = 10
 # Backward kernel against its plain version, as a share of max|grad|: f32
 # sums in another order at 'highest' and 'high'; at 'default' one bf16
 # rounding (2^-8) of a row-stage partial that the two orders may round to
@@ -186,18 +194,20 @@ def sweep_bwd_bound(args):
 
 
 def reset_counts():
-    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd, warp
 
     sweep.launches.clear()
     sweep_bwd.launches.clear()
+    warp.launches.clear()
     lighting.launches = lighting.adj_launches = 0
 
 
 def read_counts():
     """Launches since reset_counts, by kernel row: the sweep kernels'
     counts (kept by view count) split into one view ("sweep_fwd",
-    "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views")."""
-    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+    "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views"),
+    and the row warp's ("warp_rows_fwd", "warp_rows_bwd")."""
+    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd, warp
 
     def batched(counts):
         return sum(n for views, n in counts.items() if views > 1)
@@ -205,7 +215,38 @@ def read_counts():
     return {"sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
             "tau_sweep": lighting.launches, "tau_adj": lighting.adj_launches,
             "sweep_fwd_views": batched(sweep.launches),
-            "sweep_bwd_views": batched(sweep_bwd.launches)}
+            "sweep_bwd_views": batched(sweep_bwd.launches),
+            "warp_rows_fwd": warp.launches["warp_rows_fwd"],
+            "warp_rows_bwd": warp.launches["warp_rows_bwd"]}
+
+
+def warp_mode(mode):
+    """The JAX package's pixel-warp switch: "rows" sets TPUVR_WARP=rows,
+    anything else clears it (the port's 4-tap gather)."""
+    if mode == "rows":
+        os.environ["TPUVR_WARP"] = "rows"
+    else:
+        os.environ.pop("TPUVR_WARP", None)
+
+
+def c4_row_groups():
+    """c4's view groups under TPUVR_WARP=rows (host geometry); fails unless
+    every one of the four got a row plan."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.ops.warp import RowWarpPlan
+    from tpuvr_torch.train import fit
+
+    c4 = configs.CONFIGS["c4"]
+    n = c4["grid_n"]
+    warp_mode("rows")
+    try:
+        groups = fit.group_views(configs.cameras(c4), (n, n, n, 4))
+    finally:
+        warp_mode("gather")
+    check(len(groups) == 4 and all(isinstance(g[3], RowWarpPlan)
+                                   for g in groups.values()),
+          "not every c4 group got a row plan")
+    return groups
 
 
 def backward_kernels(dev):
@@ -402,7 +443,7 @@ def c4_minibatch(dev):
     views = c4["train"].views_per_batch
     groups = fit.group_views(configs.cameras(c4), (n, n, n, 4))
     key = sorted(groups)[0]
-    _, stacked, _ = groups[key]
+    _, stacked, _, _ = groups[key]
     grid_sc = render.grid_to_sweep_layout(smoke_sphere(n, device=dev),
                                           key[0]).contiguous()
     c = stacked["coeffs"][:views].to(dev)
@@ -563,6 +604,117 @@ def view_batch_kernels(dev):
     return out
 
 
+def warp_kernels(dev):
+    """The row-block warp pair (K7: forward, K8: backward) at c4's row plans,
+    the first view of the first group of each sweep axis (the two plan
+    shapes), on a random (4, 256, 256) lattice in [0, 1): K7 against its
+    plain version (1e-6) and against grid_sample (bilinear, align_corners,
+    border, the same positions; 1e-4: grid_sample normalises the positions
+    to [-1, 1] and back, which moves them by up to ~1.5e-5 lattice units at
+    255); K8 against its plain version (1e-5 of max|grad|), against
+    grid_sample's input gradient (1e-4 of max|grad|), and bit for bit over
+    two calls. Times the kernels, their plain versions and grid_sample each
+    way (the library yardstick). Returns the numbers for the summary."""
+    from tpuvr_torch.kernels import warp as kwarp
+    from tpuvr_torch.kernels.warp_torch import (
+        warp_rows_bwd_torch,
+        warp_rows_fwd_torch,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the plain warp would keep ~3 digits")
+    groups = c4_row_groups()
+    for key in sorted(groups):
+        plan = groups[key][3]
+        log(f"[kernel] c4 row plan {key}: {plan.ty}x{plan.tx} tiles, f_v "
+            f"{plan.f_v}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {"cases": {}}
+    seen = set()
+    for key in sorted(groups):
+        if key[0] in seen:
+            continue
+        seen.add(key[0])
+        _, stacked, _, plan = groups[key]
+        y, x, vb = (stacked[k][0].to(dev) for k in ("rwy", "rwx", "rwvb"))
+        n_v, n_u = stacked["dt"].shape[1:]
+        n_tiles, p = y.shape
+        f_v = plan.f_v
+        inter = torch.rand((4, n_v, n_u), generator=gen, device=dev)
+        d_out = torch.randn((4, n_tiles, p), generator=gen, device=dev)
+        pos = torch.stack([x / (n_u - 1) * 2 - 1, y / (n_v - 1) * 2 - 1],
+                          dim=-1)[None]
+
+        def gs_fwd():
+            return torch.nn.functional.grid_sample(
+                inter[None], pos, mode="bilinear", padding_mode="border",
+                align_corners=True)[0]
+
+        def gs_bwd():
+            return torch.ops.aten.grid_sampler_2d_backward(
+                d_out[None], inter[None], pos, 0, 1, True,
+                [True, False])[0][0]
+
+        k7 = kwarp.warp_rows_fwd(inter, y, x, vb, f_v=f_v)
+        p7 = warp_rows_fwd_torch(inter, y, x, vb, f_v=f_v)
+        k8 = kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+        k8b = kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+        p8 = warp_rows_bwd_torch(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+        torch.cuda.synchronize()
+        scale = float(p8.abs().max())
+        c = dict(
+            plan=f"{plan.ty}x{plan.tx} tiles, f_v {f_v}",
+            lattice=f"4 x {n_v} x {n_u}", n_tiles=n_tiles,
+            pixels_per_tile=p,
+            fwd_err=float((k7 - p7).abs().max()),
+            fwd_err_vs_grid_sample=float((k7 - gs_fwd()).abs().max()),
+            bwd_abs_err=float((k8 - p8).abs().max()),
+            bwd_err_of_max=float((k8 - p8).abs().max()) / scale,
+            bwd_err_of_max_vs_grid_sample=float(
+                (k8 - gs_bwd()).abs().max()) / scale,
+            bwd_bit_identical=bool(torch.equal(k8, k8b)))
+        log(f"[kernel] warp_rows c4 axis {key[0]} ({c['plan']}, {n_tiles} "
+            f"tiles of {p} pixels): K7 max abs err {c['fwd_err']:.3e} "
+            f"against plain (tol 1e-6), {c['fwd_err_vs_grid_sample']:.3e} "
+            f"against grid_sample (tol 1e-4); K8 {c['bwd_err_of_max']:.3e} "
+            f"of max|grad| {scale:.3e} against plain (tol 1e-5), "
+            f"{c['bwd_err_of_max_vs_grid_sample']:.3e} against grid_sample "
+            f"(tol 1e-4), two calls bit-identical {c['bwd_bit_identical']}")
+        check(c["fwd_err"] <= 1e-6 and c["fwd_err_vs_grid_sample"] <= 1e-4
+              and bool(torch.isfinite(k7).all()), f"warp_rows_fwd {key}")
+        check(scale > 0 and c["bwd_err_of_max"] <= 1e-5
+              and c["bwd_err_of_max_vs_grid_sample"] <= 1e-4
+              and c["bwd_bit_identical"], f"warp_rows_bwd {key}")
+        # Unique bytes either way: the positions and origins, the (4, T, P)
+        # tiles and the (4, V, U) image (or their cotangent and gradient).
+        pos_b = 2 * n_tiles * p * 4 + n_tiles * 4
+        tile_b, image_b = 4 * n_tiles * p * 4, 4 * n_v * n_u * 4
+        c.update(
+            fwd_ms=cuda_ms(lambda: kwarp.warp_rows_fwd(inter, y, x, vb,
+                                                       f_v=f_v), 50),
+            bwd_ms=cuda_ms(lambda: kwarp.warp_rows_bwd(
+                d_out, y, x, vb, n_v, n_u, f_v=f_v), 20),
+            fwd_plain_ms=cuda_ms(lambda: warp_rows_fwd_torch(
+                inter, y, x, vb, f_v=f_v), 3),
+            bwd_plain_ms=cuda_ms(lambda: warp_rows_bwd_torch(
+                d_out, y, x, vb, n_v, n_u, f_v=f_v), 3),
+            fwd_library_ms=cuda_ms(gs_fwd, 50),
+            bwd_library_ms=cuda_ms(gs_bwd, 50),
+            bytes_ms=(pos_b + tile_b + image_b) / HBM_BYTES_PER_S * 1e3,
+            ops_ms=(WARP_FLOPS_PER_SAMPLE * 4 * n_tiles * p
+                    / F32_FLOP_PER_S * 1e3))
+        log(f"[kernel] warp_rows c4 axis {key[0]}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in c.items() if k.endswith("_ms")))
+        out["cases"][f"axis{key[0]}"] = c
+        del inter, d_out, pos, k7, p7, k8, k8b, p8
+    cases = out["cases"].values()
+    out["fwd_max_abs_err"] = max(c["fwd_err"] for c in cases)
+    out["bwd_max_abs_err"] = max(c["bwd_abs_err"] for c in cases)
+    out["bwd_err_of_max"] = max(c["bwd_err_of_max"] for c in cases)
+    return out
+
+
+
 class _CaptureGrad:
     """An optimizer whose state after a step is the step's gradient."""
 
@@ -576,14 +728,17 @@ class _CaptureGrad:
 def training(dev, run_root):
     """The training main paths: c4 at full width through fit_grid, as
     configured and fused, each with the view-batched sweep and view by
-    view; one batched c4 step through the kernels against the same step
-    through the plain versions and against the view-by-view step; a lit
-    fit with differentiable shadows at 128^3. Returns the numbers for the
-    summary."""
+    view, and with the view batch under the row-block warp; one batched c4
+    step through the kernels against the same step through the plain
+    versions and against the view-by-view step, and a rows step against
+    the gather step; evaluate_psnr over the 64 views under rows against the
+    gather render; a lit fit with differentiable shadows at 128^3. Returns
+    the numbers for the summary."""
     from tpuvr_torch import configs
     from tpuvr_torch.config import LightingConfig
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.train import fit
+    from tpuvr_torch.utils.metrics import psnr
 
     c4 = configs.CONFIGS["c4"]
     run = c4["render"]
@@ -608,10 +763,14 @@ def training(dev, run_root):
         else:
             os.environ["TPUVR_VIEW_BATCH"] = "0"
 
-    def fit_run(label, steps, k, fused, batched):
+    grid_rows = None  # the configured rows run's grid, on the host
+
+    def fit_run(label, steps, k, fused, batched, warp):
+        nonlocal grid_rows
         cfg = dataclasses.replace(c4["train"], steps=steps,
                                   steps_per_call=k)
         view_batch(batched)
+        warp_mode(warp)
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -622,10 +781,12 @@ def training(dev, run_root):
         wall = time.time() - t0
         counts = read_counts()
         view_batch(True)
+        warp_mode("gather")
         loss = hist["loss"]
         ms = float(np.mean(hist["step_ms"][1:]))
         log(f"[main] c4 {label} ({steps} steps, steps_per_call {k}, fused "
-            f"{fused}, view batch {batched}): {ms:.3f} ms/step after the "
+            f"{fused}, view batch {batched}, warp {warp}): {ms:.3f} ms/step "
+            "after the "
             f"first ({hist['step_ms'][0]:.1f} ms), loss {loss[0]:.5f} -> "
             f"{loss[-1]:.5f}, launches {counts}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -633,32 +794,38 @@ def training(dev, run_root):
         check(len(loss) == steps and all(np.isfinite(loss)),
               f"c4 {label} losses")
         check(loss[-1] < loss[0], f"c4 {label}: the loss did not fall")
-        # Every c4 group holds 16 views, so every step marches 8.
+        # Every c4 group holds 16 views, so every step marches 8, and the
+        # row warp warps each of them once each way.
         per_step = ({"sweep_fwd_views": 1, "sweep_bwd_views": 1,
                      "sweep_fwd": 0, "sweep_bwd": 0} if batched else
                     {"sweep_fwd_views": 0, "sweep_bwd_views": 0,
                      "sweep_fwd": k_views, "sweep_bwd": k_views})
+        rows = k_views if warp == "rows" else 0
+        per_step.update(warp_rows_fwd=rows, warp_rows_bwd=rows)
         check(all(counts[name] == m * steps for name, m in per_step.items()),
-              f"c4 {label} did not go through the expected sweep kernels")
+              f"c4 {label} did not go through the expected kernels")
         check(bool(torch.isfinite(grid).all()), f"c4 {label} grid")
+        if label == "rows":
+            grid_rows = grid.cpu()
         return dict(ms_per_step=ms, first_step_ms=hist["step_ms"][0],
                     loss_first=loss[0], loss_last=loss[-1], launches=counts,
                     steps=steps, steps_per_call=k, fused=fused,
-                    view_batch=batched,
+                    view_batch=batched, warp=warp,
                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    runs = (("c4", "configured", 10, 1, False, True),
-            ("c4_fused", "fused", 8, 4, True, True),
-            ("c4_loop", "configured_loop", 10, 1, False, False),
-            ("c4_fused_loop", "fused_loop", 8, 4, True, False))
-    out = {name: fit_run(label, steps, k, fused, batched)
-           for name, label, steps, k, fused, batched in runs}
+    runs = (("c4", "configured", 10, 1, False, True, "gather"),
+            ("c4_fused", "fused", 8, 4, True, True, "gather"),
+            ("c4_loop", "configured_loop", 10, 1, False, False, "gather"),
+            ("c4_fused_loop", "fused_loop", 8, 4, True, False, "gather"),
+            ("c4_rows", "rows", 10, 1, False, True, "rows"),
+            ("c4_fused_rows", "fused_rows", 8, 4, True, True, "rows"))
+    out = {name: fit_run(*run_args) for name, *run_args in runs}
 
     # Device-busy share: device time per step of an 8-step fit
     # (torch.profiler's device events, set-up included) over the ms/step
     # of the unprofiled run above (the profiler slows the host).
     n_prof = 8
-    for name, _, _, k, fused, batched in runs:
+    for name, _, _, k, fused, batched, warp in runs:
         def short(k=k, fused=fused):
             cfg = dataclasses.replace(c4["train"], steps=n_prof,
                                       steps_per_call=k, ckpt_every=0)
@@ -666,8 +833,10 @@ def training(dev, run_root):
                          run_dir=f"{run_root}/profiled", fused=fused)
 
         view_batch(batched)
+        warp_mode(warp)
         dev_ms, top, ops = device_ms(short, 1, n_top=8)
         view_batch(True)
+        warp_mode("gather")
         per_step = None if dev_ms is None else dev_ms / n_prof
         out[name].update(
             host_ops_per_step=ops / n_prof,
@@ -688,13 +857,32 @@ def training(dev, run_root):
     # marched view by view through the kernels: loss and gradient.
     groups = fit.group_views(cams, shape)
     key = sorted(groups)[0]
-    idxs, stacked, _ = groups[key]
+    idxs, stacked, _, _ = groups[key]
     stacked = {name: t.to(dev) for name, t in stacked.items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     params = fit.init_params(shape, True) + 0.3 * torch.randn(
         shape, generator=gen, device=dev)
     group_targets = targets[torch.as_tensor(idxs, device=dev)]
     res, host = {}, {}
+
+    def host_clock(label, call):
+        """The time to issue one step from an idle card, and to its end
+        (host clock, median of 5)."""
+        issue, whole = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            issue.append((t1 - t0) * 1e3)
+            whole.append((time.perf_counter() - t0) * 1e3)
+        host[label] = dict(issue_ms=float(np.median(issue)),
+                           step_ms=float(np.median(whole)))
+        log(f"[main] c4 step ({label}), host clock: "
+            f"{host[label]['issue_ms']:.3f} ms to issue from an idle card, "
+            f"{host[label]['step_ms']:.3f} ms to its end")
+
     for label, impl, batched in (("kernels", "cuda", True),
                                  ("plain", "torch", True),
                                  ("view_loop", "cuda", False)):
@@ -708,23 +896,7 @@ def training(dev, run_root):
         _, grad, loss = call()
         res[label] = (float(loss), grad)
         if impl == "cuda":
-            # Host clock: the time to issue one step from an idle card,
-            # and to its end (median of 5).
-            issue, whole = [], []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                call()
-                t1 = time.perf_counter()
-                torch.cuda.synchronize()
-                issue.append((t1 - t0) * 1e3)
-                whole.append((time.perf_counter() - t0) * 1e3)
-            host[label] = dict(issue_ms=float(np.median(issue)),
-                               step_ms=float(np.median(whole)))
-            log(f"[main] c4 step ({label}, view batch {batched}), host "
-                f"clock: {host[label]['issue_ms']:.3f} ms to issue from an "
-                f"idle card, {host[label]['step_ms']:.3f} ms to its end")
-    out["host"] = host
+            host_clock(label, call)
     out["step_check"] = {}
     for other in ("plain", "view_loop"):
         rel = abs(res["kernels"][0] - res[other][0]) / res[other][0]
@@ -738,7 +910,95 @@ def training(dev, run_root):
               f"c4 batched step vs {other}")
         out["step_check"][other] = dict(loss_rel_err=rel,
                                         grad_err_of_max=gerr / scale)
-    del groups, stacked, params, res, grad
+    del groups, stacked, res, grad
+
+    # The same state through a batched step with the row-block warp against
+    # the step with the 4-tap gather, for the first group of each sweep axis
+    # (both row-plan shapes): loss and gradient, and the rows step's launches.
+    out["rows_step_check"] = {}
+    seen = set()
+    for key, (idxs, stacked, _, plan) in sorted(c4_row_groups().items()):
+        if key[0] in seen:
+            continue
+        seen.add(key[0])
+        stacked = {name: t.to(dev) for name, t in stacked.items()}
+        group_targets = targets[torch.as_tensor(idxs, device=dev)]
+        res = {}
+        for label, tiling in (("rows", plan), ("gather", None)):
+            step = fit.make_train_step(key, k_views, _CaptureGrad(), run,
+                                       True, "cuda", view_batch=True,
+                                       warp_tiling=tiling)
+
+            def call(step=step):
+                return step(params, None, stacked, group_targets,
+                            np.arange(k_views), np.zeros(k_views, np.int32))
+
+            reset_counts()
+            _, grad, loss = call()
+            torch.cuda.synchronize()
+            res[label] = (float(loss), grad, read_counts())
+            if label == "rows" and not host.get("rows"):
+                host_clock("rows", call)
+        rel = abs(res["rows"][0] - res["gather"][0]) / res["gather"][0]
+        scale = float(res["gather"][1].abs().max())
+        gerr = float((res["rows"][1] - res["gather"][1]).abs().max())
+        launched = {name: res["rows"][2][name] for name in (
+            "warp_rows_fwd", "warp_rows_bwd", "sweep_fwd_views",
+            "sweep_bwd_views")}
+        log(f"[main] c4 step {key} ({plan.ty}x{plan.tx} tiles, f_v "
+            f"{plan.f_v}) rows vs gather: loss {res['rows'][0]:.7f} vs "
+            f"{res['gather'][0]:.7f} ({rel:.2e} relative, tol 1e-6); "
+            f"gradient {gerr / scale:.3e} of max|grad| {scale:.3e} (tol "
+            f"1e-5); rows step launches {launched}")
+        check(rel <= 1e-6 and gerr <= 1e-5 * scale, f"c4 rows step {key}")
+        check(launched == {"warp_rows_fwd": k_views, "warp_rows_bwd": k_views,
+                           "sweep_fwd_views": 1, "sweep_bwd_views": 1}
+              and res["gather"][2]["warp_rows_fwd"] == 0,
+              f"c4 rows step {key} launches")
+        out["rows_step_check"][f"axis{key[0]}"] = dict(
+            loss_rel_err=rel, grad_err_of_max=gerr / scale,
+            launches=launched)
+    out["host"] = host
+    del stacked, params, res, grad
+
+    # evaluate_psnr over c4's 64 views through render_views_grouped, under
+    # rows and with the gather, on the grid of the configured rows run.
+    preds, walls, counts = {}, {}, {}
+    for mode in ("rows", "gather"):
+        warp_mode(mode)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        preds[mode] = fit.render_views_grouped(grid_rows, cams, run)
+        torch.cuda.synchronize()
+        walls[mode] = time.time() - t0
+        counts[mode] = read_counts()
+    warp_mode("rows")
+    reset_counts()
+    psnr_rows = fit.evaluate_psnr(grid_rows, cams, targets, run)
+    torch.cuda.synchronize()
+    psnr_counts = read_counts()
+    warp_mode("gather")
+    psnr_gather = float(psnr(preds["gather"], targets))
+    err = float((preds["rows"] - preds["gather"]).abs().max())
+    log(f"[main] c4 evaluate_psnr under rows over {len(cams)} views: "
+        f"{psnr_rows:.4f} dB (gather render {psnr_gather:.4f} dB); images "
+        f"rows vs gather max abs err {err:.3e} (tol 1e-5); "
+        f"render_views_grouped wall {walls['rows']:.2f} s rows, "
+        f"{walls['gather']:.2f} s gather; launches {psnr_counts}")
+    check(preds["rows"].shape == targets.shape
+          and bool(torch.isfinite(preds["rows"]).all()), "c4 rows render")
+    check(err <= 1e-5 and np.isfinite(psnr_rows)
+          and abs(psnr_rows - psnr_gather) <= 1e-3, "c4 rows render vs gather")
+    check(psnr_counts["warp_rows_fwd"] == len(cams)
+          and psnr_counts["warp_rows_bwd"] == 0
+          and counts["rows"]["warp_rows_fwd"] == len(cams)
+          and counts["gather"]["warp_rows_fwd"] == 0,
+          "evaluate_psnr under rows did not warp every view through K7")
+    out["psnr_rows"] = dict(psnr_db=psnr_rows, psnr_gather_db=psnr_gather,
+                            max_abs_err_vs_gather=err, launches=psnr_counts,
+                            wall_s=walls)
+    del preds, grid_rows
 
     # Lit training with differentiable shadows, reduced to 128^3.
     nl = n // 2
@@ -905,6 +1165,7 @@ def main():
         f"(plain {tau_plain_ms:.4f})")
     bwd = backward_kernels(dev)
     vb = view_batch_kernels(dev)
+    wk = warp_kernels(dev)
 
     # Whole render path: card against device="cpu" on small inputs.
     for name, n, res, n_dirs in (("c2", 32, 48, None), ("c3", 24, 40, 4)):
@@ -1005,12 +1266,14 @@ def main():
         train = training(dev, run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
-    train_paths = ("c4", "c4_fused", "c4_loop", "c4_fused_loop", "lit")
+    train_paths = ("c4", "c4_fused", "c4_loop", "c4_fused_loop", "c4_rows",
+                   "c4_fused_rows", "psnr_rows", "lit")
     launches_by_path = {
         name: {"render": launches.get(name, 0),
                **{p: train[p]["launches"][name] for p in train_paths}}
         for name in ("sweep_fwd", "sweep_bwd", "tau_sweep", "tau_adj",
-                     "sweep_fwd_views", "sweep_bwd_views")}
+                     "sweep_fwd_views", "sweep_bwd_views", "warp_rows_fwd",
+                     "warp_rows_bwd")}
 
     def train_launches(name):
         return sum(train[p]["launches"][name] for p in train_paths)
@@ -1127,9 +1390,43 @@ def main():
             "shape": vb["shape"] + ", highest",
         },
     ]
+    # The row warp's kernels, timed at the axis-1 plan (32x32 tiles, f_v
+    # 88); the axis-0 plan's numbers are under "by_plan".
+    w1 = wk["cases"]["axis1"]
+    for d, replaces, err in (
+            ("fwd", "tpuvr/kernels/warp.py:59", wk["fwd_max_abs_err"]),
+            ("bwd", "tpuvr/kernels/warp.py:93", wk["bwd_max_abs_err"])):
+        kernels.append({
+            "name": f"warp_rows_{d}", "route": "cuda",
+            "source": "tpuvr_torch/csrc/warp_rows.cu",
+            "replaces": replaces,
+            "launches": train_launches(f"warp_rows_{d}"),
+            "launches_by_path": launches_by_path[f"warp_rows_{d}"],
+            "max_abs_err": err,
+            **({"err_of_max_grad": wk["bwd_err_of_max"],
+                "bit_identical_over_two_calls": all(
+                    c["bwd_bit_identical"] for c in wk["cases"].values())}
+               if d == "bwd" else {}),
+            "ms": w1[f"{d}_ms"],
+            "plain_ms": w1[f"{d}_plain_ms"],
+            **bound(w1["bytes_ms"], w1["ops_ms"]),
+            "library_ms": w1[f"{d}_library_ms"],
+            "library_call": ("grid_sample (bilinear, border, align_corners)"
+                             if d == "fwd" else
+                             "aten.grid_sampler_2d_backward, input gradient"),
+            "shape": f"one c4 view, axis 1: {w1['plan']}, lattice "
+                     f"{w1['lattice']}",
+            "by_plan": {a: {k: v for k, v in c.items()
+                            if k.endswith("_ms") or k == "plan"}
+                        for a, c in wk["cases"].items()},
+        })
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
     log(json.dumps({"kernels": kernels}))
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60, check=True)
+    for line in cards.stdout.strip().splitlines():
+        log(f"[device] {line}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

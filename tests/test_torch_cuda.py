@@ -234,7 +234,7 @@ def _views_args(card, group, views=4, n=24, res=20):
     cams = configs.cameras(configs.CONFIGS["c4"], n=n, res=res, n_views=16)
     groups = fit.group_views(cams, (n, n, n, 4))
     key = sorted(groups)[group]
-    _, stacked, _ = groups[key]
+    _, stacked, _, _ = groups[key]
     grid = smoke_sphere(n, device=card) + torch.tensor(
         [0.3, 0.0, 0.0, 0.0], device=card)
     grid_sc = render.grid_to_sweep_layout(grid, key[0]).contiguous()
@@ -381,3 +381,122 @@ def test_views_wrappers_reject_beyond_capacity(card):
         with pytest.raises(ValueError, match="slices"):
             fn(big, (row,) * 4, row, torch.ones((2, 1), device=card), *extra,
                views=2)
+
+
+def _row_positions(n_v, n_u, res, seed=3):
+    """Lattice rows tracking pixel rows, with jitter (as the JAX row-warp
+    tests make them), clipped into the lattice."""
+    rng = np.random.default_rng(seed)
+    y = (np.linspace(0, n_v - 1.01, res)[:, None]
+         + rng.uniform(-1, 1, (res, res))).clip(0, n_v - 1)
+    x = (np.linspace(0, n_u - 1.01, res)[None, :]
+         + rng.uniform(-1, 1, (res, res))).clip(0, n_u - 1)
+    return y.astype(np.float32), x.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def row_cases(card):
+    """The c4 row plans (the first view of the first group of each sweep
+    axis: 64x16 tiles with f_v 64, 32x32 tiles with f_v 88) and a
+    full-width row block at 512^2 (8 rows, P = 4096 pixels a tile), as
+    (f_v, y_t, x_t, vb, V, U) on the card."""
+    import os
+
+    from chip_smoke import c4_row_groups
+    from tpuvr_torch.ops.warp import plan_row_warp
+
+    cases = {}
+    for key, (_, stacked, _, plan) in sorted(c4_row_groups().items()):
+        name = f"c4_axis{key[0]}"
+        if name not in cases:
+            cases[name] = (plan.f_v, *(stacked[k][0].to(card) for k in (
+                "rwy", "rwx", "rwvb")), *stacked["dt"].shape[1:])
+    os.environ["TPUVR_WARP_ROWS"] = "8x0"
+    try:
+        plan, vb, y, x = plan_row_warp([_row_positions(256, 256, 512)],
+                                       256, 256)
+    finally:
+        del os.environ["TPUVR_WARP_ROWS"]
+    assert y.shape[-1] == 4096
+    cases["rows_p4096"] = (plan.f_v, *(torch.as_tensor(a[0]).to(card)
+                                       for a in (y, x, vb)), 256, 256)
+    return cases
+
+
+@pytest.mark.parametrize("case", ["c4_axis0", "c4_axis1", "rows_p4096"])
+def test_warp_rows_kernels_match_plain(card, row_cases, case):
+    """K7 against its plain version (1e-6 absolute on a lattice in [0, 1))
+    and K8 against its plain version (1e-5 of max|grad|), bit for bit over
+    two calls."""
+    from tpuvr_torch.kernels import warp as kwarp
+    from tpuvr_torch.kernels.warp_torch import (
+        warp_rows_bwd_torch,
+        warp_rows_fwd_torch,
+    )
+
+    f_v, y, x, vb, n_v, n_u = row_cases[case]
+    gen = torch.Generator(device=card).manual_seed(4)
+    inter = torch.rand((4, n_v, n_u), generator=gen, device=card)
+    d_out = torch.randn((4, *y.shape), generator=gen, device=card)
+    before = kwarp.launches.copy()
+    k7 = kwarp.warp_rows_fwd(inter, y, x, vb, f_v=f_v)
+    k8 = kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+    assert kwarp.launches - before == {"warp_rows_fwd": 1, "warp_rows_bwd": 1}
+    torch.testing.assert_close(
+        k7, warp_rows_fwd_torch(inter, y, x, vb, f_v=f_v), rtol=0, atol=1e-6)
+    p8 = warp_rows_bwd_torch(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+    torch.testing.assert_close(k8, p8, rtol=0,
+                               atol=1e-5 * float(p8.abs().max()))
+    assert torch.equal(k8, kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u,
+                                               f_v=f_v))
+
+
+def test_warp_rows_wrappers_reject_bad_inputs(card, row_cases):
+    from tpuvr_torch.kernels import warp as kwarp
+
+    f_v, y, x, vb, n_v, n_u = row_cases["c4_axis1"]
+    inter = torch.zeros((4, n_v, n_u), device=card)
+    d_out = torch.zeros((4, *y.shape), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        kwarp.warp_rows_fwd(inter.double(), y, x, vb, f_v=f_v)
+    with pytest.raises(ValueError, match="float32"):
+        kwarp.warp_rows_bwd(d_out, y.double(), x, vb, n_v, n_u, f_v=f_v)
+    with pytest.raises(ValueError, match="int32"):
+        kwarp.warp_rows_fwd(inter, y, x, vb.long(), f_v=f_v)
+    with pytest.raises(ValueError, match="shape"):
+        kwarp.warp_rows_fwd(inter, y, x[:, :-1].contiguous(), vb, f_v=f_v)
+    with pytest.raises(ValueError, match="shape"):
+        kwarp.warp_rows_bwd(d_out[:, :-1].contiguous(), y, x, vb, n_v, n_u,
+                            f_v=f_v)
+    with pytest.raises(ValueError, match="f_v"):
+        kwarp.warp_rows_fwd(inter, y, x, vb, f_v=n_v + 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kwarp.warp_rows_fwd(inter.transpose(1, 2), y, x, vb, f_v=f_v)
+    with pytest.raises(ValueError, match="is on"):
+        kwarp.warp_rows_fwd(inter, y.cpu(), x, vb, f_v=f_v)
+    with pytest.raises(ValueError, match="shared memory"):
+        kwarp.warp_rows_fwd(torch.zeros((4, 512, 8), device=card), y, x, vb,
+                            f_v=512)
+
+
+def test_gradients_flow_through_the_row_warp(card, row_cases):
+    """``row_warp_op('cuda')`` runs K7 forward and K8 backward, with no
+    guard and no fallback, and its gradient matches the CPU twins'."""
+    from tpuvr_torch.kernels import warp as kwarp
+    from tpuvr_torch.ops.warp import row_warp_op
+
+    f_v, y, x, vb, n_v, n_u = row_cases["c4_axis0"]
+    gen = torch.Generator().manual_seed(5)
+    base = torch.rand((4, n_v, n_u), generator=gen)
+    grads = {}
+    for dev, impl in (("cpu", "torch"), (card, "cuda")):
+        g = base.to(dev, copy=True).requires_grad_(True)
+        before = kwarp.launches.copy()
+        out = row_warp_op(f_v, impl)(g, y.to(dev), x.to(dev), vb.to(dev))
+        (out ** 2).sum().backward()
+        grads[impl] = g.grad.cpu()
+        launched = dict(kwarp.launches - before)
+        assert launched == ({} if impl == "torch" else
+                            {"warp_rows_fwd": 1, "warp_rows_bwd": 1})
+    torch.testing.assert_close(grads["cuda"], grads["torch"], rtol=0,
+                               atol=1e-5 * float(grads["torch"].abs().max()))

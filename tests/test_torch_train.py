@@ -101,7 +101,7 @@ def test_train_step_matches_jax(scene, light):
     params, mu, nu, count = _state(shape)
     jkey = sorted(jfit.group_views(jcams, shape))[1]
     idxs, stacked, band, tiling = jfit.group_views(jcams, shape)[jkey]
-    tidx, tstacked, _ = tfit.group_views(tcams, shape)[jkey]
+    tidx, tstacked, _, _ = tfit.group_views(tcams, shape)[jkey]
     assert tidx == idxs
     pick, r0s = np.array([0, 2, 1]), np.zeros(3, np.int32)
     out = {}
@@ -201,7 +201,8 @@ def test_group_views_keys_match(scene):
     tg = tfit.group_views(tcams, shape)
     assert sorted(tg) == sorted(jg)
     assert {k: v[0] for k, v in tg.items()} == {k: v[0] for k, v in jg.items()}
-    for key, (idxs, stacked, band) in tg.items():
+    for key, (idxs, stacked, band, warp) in tg.items():
+        assert warp is None
         assert stacked["coeffs"].shape == (len(idxs), 4, N)
         assert stacked["uv"].shape == (len(idxs), RES, RES, 2)
 
@@ -368,3 +369,30 @@ def test_fit_grid_refuses_unported_options(scene, tmp_path):
         tfit.fit_grid(targets, tcams, shape,
                       lighting=LightingConfig(mode="lightvolume"),
                       fused=True, run_dir=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("switch", [None, "0"])
+def test_fit_grid_honours_fused_softplus_switch(scene, tmp_path, monkeypatch,
+                                                switch):
+    """``fused=None`` chooses as the JAX trainer does: blocks of two steps
+    with softplus density build fused steps, unless TPUVR_FUSED_SOFTPLUS=0
+    (that package's switch) asks for the configured mode."""
+    if switch is None:
+        monkeypatch.delenv("TPUVR_FUSED_SOFTPLUS", raising=False)
+    else:
+        monkeypatch.setenv("TPUVR_FUSED_SOFTPLUS", switch)
+    shape, _, tcams, targets = scene
+    built = []
+    make = tfit.make_train_step
+
+    def spy(*args, **kw):
+        built.append(kw["kernel_softplus"])
+        return make(*args, **kw)
+
+    monkeypatch.setattr(tfit, "make_train_step", spy)
+    cfg = TrainConfig(lr=2e-2, steps=2, views_per_batch=2, ckpt_every=0,
+                      seed=3, steps_per_call=2)
+    tfit.fit_grid(targets, tcams, shape, cfg, RCFG, run_dir=str(tmp_path),
+                  device="cpu")
+    assert len(built) == 4
+    assert set(built) == {switch is None}

@@ -14,6 +14,9 @@ views, on one device:
   switch) asks for the view-by-view loop. Each view is then warped to
   pixels and the grid is updated; groups rotate per step, or per block of
   ``steps_per_call`` steps;
+- the pixel warp is the 4-tap gather, or with ``TPUVR_WARP=rows`` (that
+  package's switch) the row-block warp of ``tpuvr_torch.ops.warp``,
+  planned per view group, one kernel launch per view each way on the card;
 - density is parameterized through softplus by default. In the fused mode
   the training state (params and Adam moments) stays in the current
   group's sweep layout and the kernels apply softplus per slice, so no
@@ -53,6 +56,13 @@ from tpuvr_torch.ops.render import (
     sweep_layout_to_grid,
 )
 from tpuvr_torch.ops.vjp import resolve_impl, sweep_op
+from tpuvr_torch.ops.warp import (
+    RowWarpPlan,
+    lattice_positions,
+    plan_row_warp,
+    row_warp_image,
+    row_warp_op,
+)
 from tpuvr_torch.ref.camera import dominant_axis
 from tpuvr_torch.ref.march import GRID_PERM
 from tpuvr_torch.train.ckpt import Checkpointer
@@ -155,13 +165,19 @@ def group_views(cams, grid_shape, rays_per_view: Optional[int] = None):
     """Group cameras by sweep signature and stack their geometry (on the
     host).
 
-    Returns {(axis, reverse, tiles): (view_indices, stacked_geom, band)}
-    with ``band`` the group's (max |ay|, max |ax|, min |ay|, min |ax|).
-    ``tiles`` is the JAX package's per-view banded tile class of the rows a
-    step sweeps (the ``rays_per_view`` band, else every row), () for its
-    dense class: the port's kernels have no tiles, but keying on the class
-    as the JAX package does gives both trainers the same groups, hence the
-    same minibatches.
+    Returns {(axis, reverse, tiles): (view_indices, stacked_geom, band,
+    warp)} with ``band`` the group's (max |ay|, max |ax|, min |ay|,
+    min |ax|). ``tiles`` is the JAX package's per-view banded tile class of
+    the rows a step sweeps (the ``rays_per_view`` band, else every row), ()
+    for its dense class: the port's kernels have no tiles, but keying on the
+    class as the JAX package does gives both trainers the same groups, hence
+    the same minibatches.
+
+    ``warp`` is the group's :class:`~tpuvr_torch.ops.warp.RowWarpPlan` when
+    ``TPUVR_WARP=rows`` and the planner finds one; the per-view window
+    origins and tiled positions are then stacked into the geometry as
+    ``rwvb`` (int32), ``rwy`` and ``rwx``. Otherwise None: the 4-tap gather
+    (where the JAX package has its tiled or gather warp).
     """
     groups: Dict[Tuple[int, bool, tuple], Tuple[List, List, List]] = {}
     for i, cam in enumerate(cams):
@@ -176,12 +192,25 @@ def group_views(cams, grid_shape, rays_per_view: Optional[int] = None):
         idxs.append(i)
         geoms.append(geom)
         bands.append(band)
+    rows_warp = os.environ.get("TPUVR_WARP") == "rows"
     out = {}
     for key, (idxs, geoms, bands) in groups.items():
         band = (max(b[0] for b in bands), max(b[1] for b in bands),
                 min(b[2] for b in bands), min(b[3] for b in bands))
+        plan = None
+        if rows_warp:
+            n_v, n_u = geoms[0]["dt"].shape
+            planned = plan_row_warp(
+                [lattice_positions(tuple(g["lattice"].numpy()),
+                                   g["uv"].numpy(), n_v, n_u) for g in geoms],
+                n_v, n_u)
+            if planned is not None:
+                plan, rvb, ry, rx = planned
+                for g, vb, yy, xx in zip(geoms, rvb, ry, rx):
+                    g.update(rwvb=torch.as_tensor(vb), rwy=torch.as_tensor(yy),
+                             rwx=torch.as_tensor(xx))
         stacked = {k: torch.stack([g[k] for g in geoms]) for k in geoms[0]}
-        out[key] = (idxs, stacked, band)
+        out[key] = (idxs, stacked, band, plan)
     return out
 
 
@@ -230,6 +259,7 @@ def make_train_step(
     kernel_softplus: bool = False,
     lighting=None,
     view_batch: bool = False,
+    warp_tiling=None,
 ):
     """One train step for a view group (axis, reverse, ...), on one device.
 
@@ -248,7 +278,11 @@ def make_train_step(
     slice (every slice is then occupied). ``lighting``: bake the sky light
     volume from the current density and multiply it into emission before
     the sweep (with ``lighting.detach=False`` the gradient flows through
-    the shadows too).
+    the shadows too). ``warp_tiling``: the group's ``RowWarpPlan`` from
+    :func:`group_views`; without ``rows`` each view's channels-first
+    (4, V, U) image then goes through the row-block warp (its geometry
+    holds ``rwy``/``rwx``/``rwvb``), and the loss compares channels-first
+    images. None (or with ``rows``) keeps the 4-tap gather.
     """
     axis, reverse = key[0], key[1]
     lit = lighting is not None and lighting.mode != "none"
@@ -269,8 +303,16 @@ def make_train_step(
         return grid_sc, slice_enables(grid_sc, reverse,
                                       render_cfg.use_occupancy)
 
-    def warp_loss(inter, geom_i, target, r0):
-        """Pixel warp of a (V, U, 4) intermediate image and its MSE."""
+    row_plan = (warp_tiling if isinstance(warp_tiling, RowWarpPlan)
+                and rows is None else None)
+
+    def warp_loss(inter, geom_i, target, r0, row_op):
+        """Pixel warp of a (V, U, 4) intermediate image, or a (4, V, U) one
+        through ``row_op``, and its MSE."""
+        if row_op is not None:
+            out = row_op(inter, geom_i["rwy"], geom_i["rwx"], geom_i["rwvb"])
+            img3 = row_warp_image(out[:3], row_plan)
+            return torch.mean((img3 - target.permute(2, 0, 1)) ** 2)
         if rows is None:
             img = warp_to_pixels_dynamic(inter, geom_i["lattice"],
                                          geom_i["uv"])[..., :3]
@@ -282,11 +324,13 @@ def make_train_step(
         return torch.sum(err * mask) / torch.clamp_min(torch.sum(mask), 1.0)
 
     def inter_image(rgb, trans):
-        return torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+        inter = torch.cat([rgb, trans[None]], dim=0)
+        return inter if row_plan is not None else inter.permute(1, 2, 0)
 
     def view_inters(op, grid_sc, enables, geom):
-        """Every view's (V, U, 4) intermediate image, one op call per view
-        or, with ``view_batch``, one call for the stacked batch."""
+        """Every view's intermediate image ((4, V, U) for the row warp, else
+        (V, U, 4)), one op call per view or, with ``view_batch``, one call
+        for the stacked batch."""
         c = geom["coeffs"]  # (n_views, 4, S)
         en = enables[None, :] * geom["valid"]  # (n_views, S)
         dt = geom["dt"]  # (n_views, V, U)
@@ -303,6 +347,8 @@ def make_train_step(
                       render_cfg.early_stop_eps, resolve_impl(impl, params),
                       render_cfg.precision, softplus=kernel_softplus,
                       views=n_views if view_batch else 1)
+        row_op = (None if row_plan is None else
+                  row_warp_op(row_plan.f_v, resolve_impl(impl, params)))
         pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
                                  device=params.device)
         geom = {k: v[pick_t] for k, v in geom_all.items()}
@@ -316,7 +362,8 @@ def make_train_step(
             for i, inter in enumerate(view_inters(op, grid_sc, enables,
                                                   geom)):
                 geom_i = {k: v[i] for k, v in geom.items()}
-                total = total + warp_loss(inter, geom_i, targets[i], r0s[i])
+                total = total + warp_loss(inter, geom_i, targets[i], r0s[i],
+                                          row_op)
             loss = total / n_views
             (grads,) = torch.autograd.grad(loss, p)
         updates, opt_state = opt.update(grads, opt_state)
@@ -386,7 +433,8 @@ def fit_grid(
         (default ``Adam(cfg.lr)``).
       fused: keep the state in sweep layout with the kernels' softplus;
         None chooses as the JAX package does: with softplus density, no
-        lighting, and ``steps_per_call`` > 1 or a single view group.
+        lighting, ``TPUVR_FUSED_SOFTPLUS`` not "0" (that package's switch)
+        and ``steps_per_call`` > 1 or a single view group.
       device: None for the card, or "cpu".
 
     Returns:
@@ -423,8 +471,8 @@ def fit_grid(
     # Geometry is built on the host, then each group's stacked tensors
     # move to the device once.
     groups = {
-        k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band)
-        for k, (idxs, stacked, band) in group_views(
+        k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band, plan)
+        for k, (idxs, stacked, band, plan) in group_views(
             cams, grid_shape, rays_per_view=cfg.rays_per_view).items()
     }
     group_keys = sorted(groups)
@@ -432,10 +480,11 @@ def fit_grid(
     K = max(int(cfg.steps_per_call), 1)
     if fused is None:
         fused = (cfg.density_softplus and not lit
+                 and os.environ.get("TPUVR_FUSED_SOFTPLUS", "1") != "0"
                  and (K > 1 or len(group_keys) == 1))
     steps_fns, rows_by_key = {}, {}
     for key in group_keys:
-        idxs, stacked, _ = groups[key]
+        idxs, stacked, _, plan = groups[key]
         n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
         rows = band_rows(cfg.rays_per_view, n_v, n_u)
         rows_by_key[key] = (rows, n_v)
@@ -443,7 +492,7 @@ def fit_grid(
         steps_fns[key] = make_train_step(
             key, k_views, opt, render_cfg, cfg.density_softplus, impl,
             rows=rows, kernel_softplus=fused, lighting=lighting,
-            view_batch=view_batch_eligible(k_views),
+            view_batch=view_batch_eligible(k_views), warp_tiling=plan,
         )
     targets = _as_tensor(targets)
     targets_by_key = {
@@ -556,8 +605,51 @@ def render_all_views(grid, cams, render_cfg: RenderConfig = RenderConfig(),
                                             device=dev)[0] for cam in cams])
 
 
+def render_views_grouped(grid, cams, render_cfg: RenderConfig = RenderConfig(),
+                         lighting=None, device=None):
+    """Render every camera through the training path's per-view geometry:
+    views grouped as :func:`group_views` groups them, one sweep op and one
+    sweep-layout grid per group, and per view the row-block warp (under
+    ``TPUVR_WARP=rows``, where the group has a plan) or the 4-tap gather.
+    Returns (N, H, W, 3)."""
+    dev = resolve_device(device)
+    with torch.no_grad():
+        grid = torch.as_tensor(grid, device=dev)
+        if lighting is not None and lighting.mode != "none":
+            from tpuvr_torch.ops.lighting import apply_lighting
+
+            grid = apply_lighting(grid, lighting, render_cfg.precision)
+        out = [None] * len(cams)
+        for key, (idxs, stacked, _, plan) in group_views(
+                cams, tuple(grid.shape)).items():
+            axis, reverse = key[0], key[1]
+            grid_sc = grid_to_sweep_layout(grid, axis)
+            enables = slice_enables(grid_sc, reverse,
+                                    render_cfg.use_occupancy)
+            impl = resolve_impl(None, grid_sc)
+            op = sweep_op(reverse, render_cfg.sigma_scale,
+                          render_cfg.early_stop_eps, impl,
+                          render_cfg.precision)
+            row_op = None if plan is None else row_warp_op(plan.f_v, impl)
+            stacked = {n: t.to(dev) for n, t in stacked.items()}
+            for j, i in enumerate(idxs):
+                g = {n: t[j] for n, t in stacked.items()}
+                rgb, trans = op(grid_sc, tuple(g["coeffs"]),
+                                enables * g["valid"], g["dt"])
+                inter = torch.cat([rgb, trans[None]], dim=0)
+                if row_op is not None:
+                    img = row_op(inter, g["rwy"], g["rwx"], g["rwvb"])
+                    out[i] = row_warp_image(img[:3], plan).permute(1, 2, 0)
+                else:
+                    out[i] = warp_to_pixels_dynamic(
+                        inter.permute(1, 2, 0), g["lattice"], g["uv"])[..., :3]
+        return torch.stack(out)
+
+
 def evaluate_psnr(grid, cams, targets, render_cfg: RenderConfig =
                   RenderConfig(), lighting=None, device=None):
-    """PSNR (dB) of every view rendered from ``grid`` against ``targets``."""
-    preds = render_all_views(grid, cams, render_cfg, lighting, device)
+    """PSNR (dB) of every view rendered from ``grid`` (through
+    :func:`render_views_grouped`, as the JAX package renders it) against
+    ``targets``."""
+    preds = render_views_grouped(grid, cams, render_cfg, lighting, device)
     return float(psnr(preds, _as_tensor(targets).to(preds.device)))
