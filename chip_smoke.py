@@ -30,14 +30,28 @@ Phases, in order; any failure raises and exits non-zero:
      rows against the gather render; then a lit fit_grid with
      differentiable shadows at 128^3. Before each main path the kernels'
      launch counts are set to 0, and they are read after it;
-  5. print one JSON line per kernel (time, bound, plain and library
+  5. the data-parallel path (dist): c4 at full width through
+     fit_grid(mesh=data_mesh()) on 4 ranks started by
+     tpuvr_torch.dist.launch.spawn, 3 steps under each gradient reduction
+     (bucketed, chunked, the ring backward), one mesh step held against the
+     single-process step, and the ring backward (B11's port) against K6 in
+     one call then one all-reduce, timed. With 4 cards or more each rank
+     takes a card and the ranks talk over NCCL; with fewer the 4 ranks
+     share card 0 over gloo (NCCL refuses two ranks on one card), so their
+     times say nothing of several cards. Each rank resets and reads its own
+     launch and collective counts around each run;
+  6. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the cards nvidia-smi lists, the card's name and power
      limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
+
+``--phase dist`` runs the build and phase 5 alone (for a machine with
+four cards).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -66,6 +80,13 @@ WARP_FLOPS_PER_SAMPLE = 10
 # rounding (2^-8) of a row-stage partial that the two orders may round to
 # neighbouring bf16 values.
 GRAD_TOL = {"highest": 1e-5, "high": 1e-5, "default": 4e-3}
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink 4, each direction
+DIST_RANKS = 4
+RING_CHUNKS = 4
+# fit_grid's gradient reductions on a mesh (MeshConfig's fields).
+DIST_MODES = {"bucketed": dict(grad_buckets=4),
+              "chunked": dict(bwd_chunks=RING_CHUNKS),
+              "ring": dict(grad_ring=True, bwd_chunks=RING_CHUNKS)}
 
 
 def log(msg):
@@ -194,20 +215,24 @@ def sweep_bwd_bound(args):
 
 
 def reset_counts():
-    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd, warp
+    from tpuvr_torch.dist import init
+    from tpuvr_torch.kernels import lighting, ring_bwd, sweep, sweep_bwd, warp
 
     sweep.launches.clear()
     sweep_bwd.launches.clear()
     warp.launches.clear()
     lighting.launches = lighting.adj_launches = 0
+    ring_bwd.launches = 0
+    init.collectives.clear()
 
 
 def read_counts():
     """Launches since reset_counts, by kernel row: the sweep kernels'
     counts (kept by view count) split into one view ("sweep_fwd",
     "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views"),
-    and the row warp's ("warp_rows_fwd", "warp_rows_bwd")."""
-    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd, warp
+    the row warp's ("warp_rows_fwd", "warp_rows_bwd") and the ring
+    backward's ("sweep_bwd_ring")."""
+    from tpuvr_torch.kernels import lighting, ring_bwd, sweep, sweep_bwd, warp
 
     def batched(counts):
         return sum(n for views, n in counts.items() if views > 1)
@@ -217,7 +242,8 @@ def read_counts():
             "sweep_fwd_views": batched(sweep.launches),
             "sweep_bwd_views": batched(sweep_bwd.launches),
             "warp_rows_fwd": warp.launches["warp_rows_fwd"],
-            "warp_rows_bwd": warp.launches["warp_rows_bwd"]}
+            "warp_rows_bwd": warp.launches["warp_rows_bwd"],
+            "sweep_bwd_ring": ring_bwd.launches}
 
 
 def warp_mode(mode):
@@ -714,17 +740,6 @@ def warp_kernels(dev):
     return out
 
 
-
-class _CaptureGrad:
-    """An optimizer whose state after a step is the step's gradient."""
-
-    def init(self, params):
-        return None
-
-    def update(self, grads, state):
-        return torch.zeros_like(grads), grads
-
-
 def training(dev, run_root):
     """The training main paths: c4 at full width through fit_grid, as
     configured and fused, each with the view-batched sweep and view by
@@ -736,6 +751,7 @@ def training(dev, run_root):
     the numbers for the summary."""
     from tpuvr_torch import configs
     from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.dist.workers import CaptureGrad
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.train import fit
     from tpuvr_torch.utils.metrics import psnr
@@ -886,7 +902,7 @@ def training(dev, run_root):
     for label, impl, batched in (("kernels", "cuda", True),
                                  ("plain", "torch", True),
                                  ("view_loop", "cuda", False)):
-        step = fit.make_train_step(key, k_views, _CaptureGrad(), run, True,
+        step = fit.make_train_step(key, k_views, CaptureGrad(), run, True,
                                    impl, view_batch=batched)
 
         def call(step=step):
@@ -925,7 +941,7 @@ def training(dev, run_root):
         group_targets = targets[torch.as_tensor(idxs, device=dev)]
         res = {}
         for label, tiling in (("rows", plan), ("gather", None)):
-            step = fit.make_train_step(key, k_views, _CaptureGrad(), run,
+            step = fit.make_train_step(key, k_views, CaptureGrad(), run,
                                        True, "cuda", view_batch=True,
                                        warp_tiling=tiling)
 
@@ -1024,7 +1040,338 @@ def training(dev, run_root):
     return out
 
 
-def main():
+def _timed_once(fn):
+    """(result, ms) of one call, CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    end.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def dist_rank(steps, run_root, reps):
+    """One rank of the dist phase, started by ``dist_phase`` through
+    ``tpuvr_torch.dist.launch.spawn`` (which brought torch.distributed up
+    and made this rank's card current). Every rank runs the same calls in
+    the same order. Returns numbers only:
+
+    - "fits": c4 through fit_grid on the data mesh, ``steps`` configured
+      steps under each reduction of DIST_MODES, with this rank's launch and
+      collective counts, reset just before each run and read just after;
+    - "step": one mesh step of c4's first group from one state in each
+      mode, its gradient against the bucketed one, and on rank 0 against
+      the single-process step (the one ``training`` checks);
+    - "b11": the ring backward over this rank's row tile of the c4
+      minibatch against K6 in one call then one all-reduce and against its
+      plain version; K6 alone, one all-reduce of the gradient alone, the
+      ring, K6 then one all-reduce, and the plain ring, timed.
+    """
+    import torch.distributed as tdist
+
+    from tpuvr_torch import configs
+    from tpuvr_torch.dist import init as dinit
+    from tpuvr_torch.dist.workers import CaptureGrad, row_tile
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import ring_bwd
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+    from tpuvr_torch.train import fit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = dinit.data_mesh()
+    t0 = time.time()
+
+    def reached(stage):
+        # Progress on stderr, so that a rank that stops shows where.
+        print(f"[dist] rank {mesh.rank} on {dev}: {stage} at "
+              f"{time.time() - t0:.1f} s", file=sys.stderr, flush=True)
+
+    c4 = configs.CONFIGS["c4"]
+    run = c4["render"]
+    n = c4["grid_n"]
+    shape = (n, n, n, 4)
+    cams = configs.cameras(c4)
+    k_views = c4["train"].views_per_batch
+    targets = fit.render_all_views(smoke_sphere(n, device=dev), cams, run)
+    out = {"rank": mesh.rank, "device": str(dev), "fits": {}, "step": {}}
+    reached("targets rendered")
+
+    for mode, kw in DIST_MODES.items():
+        cfg = dataclasses.replace(c4["train"], steps=steps, ckpt_every=0)
+        tdist.barrier()
+        reset_counts()
+        grid, _, hist = fit.fit_grid(targets, cams, shape, cfg, run,
+                                     mesh=mesh, run_dir=f"{run_root}/{mode}",
+                                     fused=False, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts.update({f"collective_{k}": v
+                       for k, v in dinit.collectives.items()})
+        out["fits"][mode] = dict(
+            loss=hist["loss"], step_ms=hist["step_ms"], launches=counts,
+            finite=bool(torch.isfinite(grid).all()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del grid
+        reached(f"fit_grid {mode}")
+
+    groups = fit.group_views(cams, shape)
+    key = sorted(groups)[0]
+    idxs, stacked, _, _ = groups[key]
+    stacked = {name: t.to(dev) for name, t in stacked.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = fit.init_params(shape, True, device=dev) + 0.3 * torch.randn(
+        shape, generator=gen, device=dev)
+    group_targets = targets[torch.as_tensor(idxs, device=dev)]
+    res = {}
+    for mode, kw in (("single", None), *DIST_MODES.items()):
+        if kw is None and mesh.rank != 0:
+            continue
+        step = fit.make_train_step(
+            key, k_views, CaptureGrad(), run, True, "cuda", view_batch=True,
+            **({} if kw is None else dict(mesh=mesh, **kw)))
+        _, grad, loss = step(params, None, stacked, group_targets,
+                             np.arange(k_views), np.zeros(k_views, np.int32))
+        res[mode] = (float(loss), grad)
+    b_loss, b_grad = res["bucketed"]
+    b_scale = float(b_grad.abs().max())
+    for mode in DIST_MODES:
+        loss, grad = res[mode]
+        out["step"][mode] = dict(
+            loss=loss, grad_sum=float(grad.double().sum()),
+            err_of_max_vs_bucketed=float((grad - b_grad).abs().max())
+            / b_scale)
+        if "single" in res:
+            s_loss, s_grad = res["single"]
+            out["step"][mode].update(
+                loss_rel_err_vs_single=abs(loss - s_loss) / s_loss,
+                err_of_max_vs_single=float((grad - s_grad).abs().max())
+                / float(s_grad.abs().max()))
+    del res, grad, b_grad, params, stacked, group_targets, targets, groups
+    reached("mesh steps")
+
+    reverse, views, args = c4_minibatch(dev)
+    tile, row0 = row_tile(args, views, mesh)
+    del args
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+              precision="highest", views=views, row0=row0)
+    ring_kw = dict(kw, mesh=mesh, ring_size=mesh.world,
+                   ring_chunks=RING_CHUNKS)
+    rgb, trans = ksweep.sweep_fwd(*tile, **kw)
+    gen = torch.Generator(device=dev).manual_seed(2 + mesh.rank)
+    bwd_args = (*tile, rgb, trans,
+                torch.randn(rgb.shape, generator=gen, device=dev),
+                torch.randn(trans.shape, generator=gen, device=dev))
+    ref = kbwd.sweep_bwd(*bwd_args, **kw)
+    dinit.all_reduce(ref, mesh)
+    got = ring_bwd.sweep_bwd_ring(*bwd_args, **ring_kw)
+    tdist.barrier()
+    plain, plain_ms = _timed_once(
+        lambda: ring_bwd.sweep_bwd_ring_torch(*bwd_args, **ring_kw))
+    scale = float(ref.abs().max())
+    b11 = dict(scale=scale, max_abs_err=float((got - ref).abs().max()),
+               plain_err=float((got - plain).abs().max()), plain_ms=plain_ms,
+               grad_sum=float(got.double().sum()))
+    del got, plain
+    zeros = torch.zeros_like(ref)
+
+    def k6():
+        return kbwd.sweep_bwd(*bwd_args, **kw)
+
+    for name, fn in (
+            ("k6_ms", k6),
+            ("all_reduce_ms", lambda: dinit.all_reduce(zeros, mesh)),
+            ("ring_ms", lambda: ring_bwd.sweep_bwd_ring(*bwd_args,
+                                                        **ring_kw)),
+            ("library_ms", lambda: dinit.all_reduce(k6(), mesh))):
+        tdist.barrier()
+        b11[name] = cuda_ms(fn, reps)
+    b11["k6_bytes_ms"], b11["k6_ops_ms"] = sweep_bwd_bound(tile)
+    b11["grad_bytes"] = ref.numel() * 4
+    b11["shape"] = (f"c4 minibatch row tile: {views} views x "
+                    f"{tile[3].shape[0] // views}x{tile[3].shape[1]} rays, "
+                    f"grid {tuple(tile[0].shape)}, {RING_CHUNKS} slabs")
+    out["b11"] = b11
+    reached("ring backward")
+    return out
+
+
+def dist_phase(steps=3):
+    """The data-parallel path on DIST_RANKS ranks (see ``dist_rank``):
+    starts them, checks every rank's results, and returns the summary and
+    the ring backward's kernel entry."""
+    from tpuvr_torch.dist import launch
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= DIST_RANKS else "gloo"
+    world = DIST_RANKS
+    layout = (f"{world} ranks, one a card, over NCCL "
+              f"{'.'.join(map(str, torch.cuda.nccl.version()))}"
+              if backend == "nccl"
+              else f"{world} ranks sharing card 0 over gloo (time-sliced: "
+              f"NCCL refuses two ranks on one card; these times say nothing "
+              f"of {world} cards)")
+    log(f"[dist] c4 on a data mesh: {layout}")
+    reps = 10 if backend == "nccl" else 2
+    torch.cuda.empty_cache()
+    run_root = tempfile.mkdtemp(prefix=".chip_smoke_dist_",
+                                dir=Path(__file__).resolve().parent)
+    t0 = time.time()
+    try:
+        ranks = launch.spawn(dist_rank, world, backend, "cuda",
+                             (steps, run_root, reps), timeout_s=600)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    seconds = time.time() - t0
+    check([r["rank"] for r in ranks] == list(range(world)), "dist ranks")
+    summary = {"transport": backend, "ranks": world,
+               "cards": min(n_cards, world), "layout": layout,
+               "steps": steps, "fits": {}}
+    for mode, kw in DIST_MODES.items():
+        fits = [r["fits"][mode] for r in ranks]
+        loss = fits[0]["loss"]
+        check(all(f["loss"] == loss for f in fits),
+              f"dist {mode}: the ranks' losses differ")
+        check(len(loss) == steps and all(np.isfinite(loss))
+              and all(f["finite"] for f in fits), f"dist {mode} losses")
+        check(loss[-1] < loss[0], f"dist {mode}: the loss did not fall")
+        slabs = kw.get("bwd_chunks", 1)
+        # Per step: K5 once, K6 once a slab, the ring once in ring mode;
+        # all-reduces: the tiles' gather and one a bucket or slab. One
+        # broadcast of the starting parameters.
+        want = {"sweep_fwd_views": steps, "sweep_bwd_views": slabs * steps,
+                "sweep_bwd_ring": steps if kw.get("grad_ring") else 0,
+                "sweep_fwd": 0, "sweep_bwd": 0,
+                "collective_all_reduce": (1 + max(slabs, kw.get(
+                    "grad_buckets", 1))) * steps,
+                "collective_broadcast": 1}
+        for f in fits:
+            got = {k: f["launches"].get(k, 0) for k in want}
+            check(got == want, f"dist {mode} rank launches {got}, expected "
+                  f"{want}")
+        ms = [float(np.mean(f["step_ms"][1:])) for f in fits]
+        summary["fits"][mode] = dict(
+            loss_first=loss[0], loss_last=loss[-1], ms_per_step=ms[0],
+            ms_per_step_by_rank=ms, first_step_ms=fits[0]["step_ms"][0],
+            launches=fits[0]["launches"],
+            peak_gib=max(f["peak_gib"] for f in fits))
+        log(f"[dist] c4 {mode} {kw} ({steps} steps, {layout.split(' (')[0]})"
+            f": {ms[0]:.3f} ms/step after the first on rank 0 (ranks "
+            f"{', '.join(f'{m:.3f}' for m in ms)}), loss {loss[0]:.5f} -> "
+            f"{loss[-1]:.5f}, rank 0 launches {fits[0]['launches']}")
+
+    s0 = ranks[0]["step"]
+    for mode in DIST_MODES:
+        check(len({r["step"][mode]["grad_sum"] for r in ranks}) == 1,
+              f"dist step {mode}: the ranks' gradients differ")
+        st = s0[mode]
+        log(f"[dist] c4 step {mode} vs single-process: loss {st['loss']:.7f} "
+            f"({st['loss_rel_err_vs_single']:.2e} relative, tol 1e-6), "
+            f"gradient {st['err_of_max_vs_single']:.3e} of max|grad| (tol "
+            f"1e-5); vs bucketed {st['err_of_max_vs_bucketed']:.3e} (tol "
+            "1e-6)")
+        check(st["loss_rel_err_vs_single"] <= 1e-6
+              and st["err_of_max_vs_single"] <= 1e-5,
+              f"dist step {mode} vs the single-process step")
+        for r in ranks:
+            check(r["step"][mode]["err_of_max_vs_bucketed"] <= 1e-6,
+                  f"dist step {mode} vs bucketed on rank {r['rank']}")
+    summary["step"] = s0
+
+    b = [r["b11"] for r in ranks]
+    for r in b:
+        check(r["max_abs_err"] <= 1e-5 * r["scale"]
+              and r["plain_err"] <= GRAD_TOL["highest"] * r["scale"],
+              "ring backward vs K6 and one all-reduce, or vs plain")
+    check(len({r["grad_sum"] for r in b}) == 1,
+          "ring backward: the ranks' gradients differ")
+    t = {k: max(r[k] for r in b) for k in (
+        "k6_ms", "all_reduce_ms", "ring_ms", "library_ms", "plain_ms")}
+    hidden = ((t["k6_ms"] + t["all_reduce_ms"] - t["ring_ms"])
+              / min(t["k6_ms"], t["all_reduce_ms"]))
+    b0 = b[0]
+    if backend == "nccl":
+        # Each rank's K6, and the all-reduce's bytes over NVLink: every rank
+        # sends and receives 2 (n - 1) / n of the gradient.
+        bytes_ms = max(b0["k6_bytes_ms"], 2 * (world - 1) / world
+                       * b0["grad_bytes"] / NVLINK_BYTES_PER_S * 1e3)
+        ops_ms = b0["k6_ops_ms"]
+        bound_note = (f"max of one rank's K6 bound and 2(n-1)/n of the "
+                      f"gradient over NVLink at {NVLINK_BYTES_PER_S:.3g} B/s")
+    else:
+        # One card does every rank's K6 and the reduction in its memory:
+        # each rank's gradient read and the sum written once a rank.
+        bytes_ms = (world * b0["k6_bytes_ms"]
+                    + 2 * world * b0["grad_bytes"] / HBM_BYTES_PER_S * 1e3)
+        ops_ms = world * b0["k6_ops_ms"]
+        bound_note = ("one card doing all 4 ranks' K6 and their reduction "
+                      "in device memory")
+    ring_fit = [r["fits"]["ring"]["launches"]["sweep_bwd_ring"]
+                for r in ranks]
+    entry = {
+        "name": "sweep_bwd_ring", "route": "cuda",
+        "source": "tpuvr_torch/kernels/ring_bwd.py",
+        "kernel_source": "tpuvr_torch/csrc/sweep_bwd.cu",
+        "replaces": "tpuvr/kernels/ring_bwd.py:183",
+        "launches": ring_fit[0], "launches_by_rank": ring_fit,
+        "max_abs_err": max(r["max_abs_err"] for r in b),
+        "err_of_max": max(r["max_abs_err"] / r["scale"] for r in b),
+        "plain_err_of_max": max(r["plain_err"] / r["scale"] for r in b),
+        "ms": t["ring_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_note": bound_note,
+        "library_ms": t["library_ms"],
+        "library_call": f"K6 in one call, then one {backend} all_reduce of "
+                        "the gradient, in sequence",
+        "k6_ms": t["k6_ms"], "all_reduce_ms": t["all_reduce_ms"],
+        "hidden_share": hidden, "transport": backend, "ranks": world,
+        "cards": min(n_cards, world), "ring_chunks": RING_CHUNKS,
+        "times": "slowest rank, CUDA events",
+        "shape": b0["shape"],
+    }
+    log(f"[dist] ring backward ({b0['shape']}, {backend}): "
+        f"{entry['err_of_max']:.3e} of max|grad| against K6 + one "
+        f"all-reduce (tol 1e-5), plain {entry['plain_err_of_max']:.3e} "
+        f"(tol 1e-5); ring {t['ring_ms']:.4f} ms, K6 alone "
+        f"{t['k6_ms']:.4f} ms, all-reduce alone {t['all_reduce_ms']:.4f} ms, "
+        f"K6 then all-reduce {t['library_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.1f} ms; hidden share {hidden:.3f}; bound "
+        f"{entry['bound_ms']:.4f} ms ({bound_note})")
+    summary["b11"] = {k: v for k, v in entry.items() if k != "name"}
+    summary["seconds"] = seconds
+    log(f"[dist] phase done in {seconds:.1f} s")
+    return summary, entry, [r["fits"] for r in ranks]
+
+
+def finish(t_start):
+    """The cards, the card's name and power limit, and the contract line."""
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                           text=True, timeout=60, check=True)
+    for line in cards.stdout.strip().splitlines():
+        log(f"[device] {line}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"chip_smoke: done in {time.time() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--phase", choices=("all", "dist"), default="all",
+                        help="'dist': build, then the data-parallel path "
+                             "alone")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1052,6 +1399,11 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if opts.phase == "dist":
+        dist, ring_entry, _ = dist_phase()
+        log(json.dumps({"dist": dist}))
+        log(json.dumps({"kernels": [ring_entry]}))
+        return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
     def scene(name):
@@ -1266,8 +1618,13 @@ def main():
         train = training(dev, run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
+    # 5. The data-parallel path; rank 0's counts join the launches.
+    dist, ring_entry, dist_fits = dist_phase()
+    for mode in DIST_MODES:
+        train[f"dist_{mode}"] = {"launches": dist_fits[0][mode]["launches"]}
     train_paths = ("c4", "c4_fused", "c4_loop", "c4_fused_loop", "c4_rows",
-                   "c4_fused_rows", "psnr_rows", "lit")
+                   "c4_fused_rows", "psnr_rows", "lit",
+                   *(f"dist_{mode}" for mode in DIST_MODES))
     launches_by_path = {
         name: {"render": launches.get(name, 0),
                **{p: train[p]["launches"][name] for p in train_paths}}
@@ -1282,7 +1639,7 @@ def main():
         return {"bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
-    # 5. Summary.
+    # 6. Summary.
     head = sweep_ms["headline"]
     bc4 = bwd["by_config"]["c4"]
     kernels = [
@@ -1420,23 +1777,12 @@ def main():
                             if k.endswith("_ms") or k == "plan"}
                         for a, c in wk["cases"].items()},
         })
+    kernels.append(ring_entry)
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
+    log(json.dumps({"dist": dist}))
     log(json.dumps({"kernels": kernels}))
-    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
-                           text=True, timeout=60, check=True)
-    for line in cards.stdout.strip().splitlines():
-        log(f"[device] {line}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
-    log(f"chip_smoke: done in {time.time() - t_start:.1f} s")
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return finish(t_start)
 
 
 if __name__ == "__main__":

@@ -334,6 +334,63 @@ def test_sweep_bwd_views_kernel_carry_matches_one_call(card, reverse,
                                atol=1e-5 * float(one.abs().max()))
 
 
+@pytest.mark.parametrize("group", [0, 1])
+def test_sweep_views_kernels_row_tiles_match_whole_batch(card, group):
+    """Two row tiles of a 4-view batch (a rank's share of each view),
+    swept with ``row0``: K5 bit for bit the whole batch's rows, and the
+    tiles' K6 gradients summed within 1e-5 of max|grad| of the whole
+    batch's (each tile's rows are summed apart)."""
+    reverse, args = _views_args(card, group)
+    grid_sc, coeffs, en, dt = args
+    views, n_tiles = 4, 2
+    v_pv = dt.shape[0] // views
+    v_l = v_pv // n_tiles
+    kw = dict(reverse=reverse, precision="highest", sigma_scale=1.3,
+              views=views)
+    rgb, t = ksweep.sweep_fwd(*args, **kw)
+    d_rgb, d_t = _cotangents(card, args, 9)
+    whole = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
+    total = torch.zeros_like(whole)
+    for r in range(n_tiles):
+        def rows(x, r=r):
+            return x.unflatten(-2, (views, v_pv))[
+                ..., r * v_l:(r + 1) * v_l, :].flatten(-3, -2).contiguous()
+
+        tile = (grid_sc, coeffs, en, rows(dt))
+        k = ksweep.sweep_fwd(*tile, row0=r * v_l, **kw)
+        assert torch.equal(k[0], rows(rgb)) and torch.equal(k[1], rows(t))
+        total += kbwd.sweep_bwd(*tile, *k, rows(d_rgb), rows(d_t),
+                                row0=r * v_l, **kw)
+    torch.testing.assert_close(total, whole, rtol=0,
+                               atol=1e-5 * float(whole.abs().max()))
+
+
+def test_sweep_bwd_ring_matches_k6_and_one_all_reduce(card):
+    """The ring backward (B11's port) on a gloo group of 2 ranks sharing
+    the card: K6 per slab, each slab all-reduced as it comes out, against
+    K6 in one call then one all-reduce, 1e-5 of max|grad| (the slabs thread
+    the carry as one call does, and two ranks' sum is the same in either
+    order); every rank gets the same gradient."""
+    from tpuvr_torch.dist import launch, workers
+
+    reverse, args = _views_args(card, 1)
+    grid_sc, coeffs, en, dt = args
+    case = dict(grid_sc=grid_sc.cpu().numpy(),
+                coeffs=tuple(c.cpu().numpy() for c in coeffs),
+                enables=en.cpu().numpy(), dt=dt.cpu().numpy(), views=4,
+                reverse=reverse, ring_chunks=2, seed=8)
+    out = launch.spawn(workers.run_suite, 2, "gloo", "cuda",
+                       ([("ring", workers.ring_case, case, {})], "cuda"),
+                       timeout_s=300)
+    for rank in range(2):
+        got, ref, counts = out[rank]["ring"]
+        scale = float(np.abs(ref).max())
+        assert scale > 0
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale)
+        assert counts == {"k6": 2, "ring": 1, "all_reduce": 2}
+    np.testing.assert_array_equal(out[1]["ring"][0], out[0]["ring"][0])
+
+
 def test_sweep_views_kernel_ert_matches_k1_loop(card):
     """eps > 0 where rays terminate: over a view batch the kernels stop
     each ray where they stop it view by view, so the batch equals the

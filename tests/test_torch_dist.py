@@ -1,0 +1,534 @@
+"""tpuvr_torch's ray data parallelism (``tpuvr_torch.dist``, the mesh
+train step and ``fit_grid(mesh=...)``, the ring backward) on 4 gloo ranks
+on the CPU, held against the JAX package on its 4-device CPU mesh
+(``data_mesh(4)``) and against the port's single-process results.
+
+Every port-side case runs in one start of the 4 ranks
+(``tpuvr_torch.dist.launch.spawn``, module fixture ``ranks``); the cases
+live in ``tpuvr_torch.dist.workers``, so a rank imports no JAX.
+
+Tolerances (f32):
+- a mesh gradient against the JAX mesh gradient: 1e-5 of max|grad|, the
+  bound of the port's backward twin against the JAX scan twin
+  (tests/test_torch_sweep_bwd.py), plus the all-reduce's own roundoff:
+  summing 4 partial gradients in another order moves each element by at
+  most 3 roundings of the running sum, 3 * 2^-24 * sum_r |g_r|;
+- against the port's single-process full-rows gradient: 1e-5 of
+  max|grad|: a rank samples its rows where the whole image's rows are
+  (the sweep's ``row0``), so only the sums differ: each rank's rows are
+  summed apart and the all-reduce adds the four partials. (The JAX
+  package shifts ``by`` by ``r0 * ay`` instead, which moves each position
+  and tent weight by up to an ulp of the position: 2^-20 at 16 rows here,
+  but 5.5e-5 of max|grad| over c4's 256 rows on the card);
+- images 1e-5, as the single-process render tests; losses 1e-6
+  relative, as the single-device trainer tests; loss trajectories over
+  several steps rtol 2e-3 (the JAX package's own bound for a mesh
+  trajectory, tests/test_dist.py), every rank's bit-identical.
+"""
+
+import dataclasses
+import functools
+import os
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from tpuvr.config import RenderConfig as JRenderConfig
+from tpuvr.config import TrainConfig as JTrainConfig
+from tpuvr.dist import replicated as jdist
+from tpuvr.io.synth import smoke_sphere
+from tpuvr.kernels.ring_bwd import sweep_bwd_ring as jsweep_bwd_ring
+from tpuvr.ops import vjp as jvjp
+from tpuvr.ref.camera import OrthoCamera, look_at_perspective
+from tpuvr.train import fit as jfit
+from tpuvr_torch.config import RenderConfig, TrainConfig
+from tpuvr_torch.convert import camera_from_fields
+from tpuvr_torch.dist import launch, workers
+from tpuvr_torch.dist.init import DataMesh
+from tpuvr_torch.dist.replicated import render_view_dp
+from tpuvr_torch.kernels.ring_bwd import sweep_bwd_ring
+from tpuvr_torch.kernels.sweep_torch import (
+    sweep_fwd_torch,
+    sweep_fwd_views_torch,
+)
+from tpuvr_torch.ops import render as trender
+from tpuvr_torch.ops import vjp as tvjp
+from tpuvr_torch.train import fit as tfit
+
+WORLD = 4
+RCFG = RenderConfig(early_stop_eps=0.0)
+JRCFG = JRenderConfig(early_stop_eps=0.0)
+BUCKETS = (1, 3, 4, 64)
+SWEEPS = {"one_view": (1, False), "two_views": (2, True)}
+REDUCE = {"chunked": dict(bwd_chunks=2), "ring": dict(ring_chunks=2)}
+STEP_MODES = {"bucketed": dict(grad_buckets=4, view_batch=True),
+              "chunked": dict(bwd_chunks=2, view_batch=True),
+              "ring": dict(bwd_chunks=2, grad_ring=True, view_batch=True),
+              "loop": dict(grad_buckets=4, view_batch=False)}
+STEPS = [("gather", m) for m in STEP_MODES] + [
+    ("rows", m) for m in ("bucketed", "chunked", "ring")]
+FIT_MODES = {"plain": {}, "chunked": dict(bwd_chunks=2),
+             "ring": dict(bwd_chunks=2, grad_ring=True)}
+FIT_CFG = dict(lr=3e-2, steps=4, views_per_batch=2, ckpt_every=0, seed=11)
+
+
+def _tcam(jcam):
+    return camera_from_fields(type(jcam).__name__, **dataclasses.asdict(jcam))
+
+
+class _env:
+    """Environment variables set (None: unset) for a ``with`` block."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        for k, v in self.env.items():
+            workers._set_env(k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            workers._set_env(k, v)
+
+
+def _render_cams(n=12, res=16):
+    c = (n - 1) / 2.0
+    return [OrthoCamera(center=(c, c, -3.0 * n), forward=(0.0, 0.0, 1.0),
+                        up=(0.0, 1.0, 0.0), width=1.5 * n, height=1.5 * n,
+                        res_x=res, res_y=res),
+            look_at_perspective((c, c - 3.0 * n, c + 0.8 * n), (c, c, c),
+                                res_x=res, res_y=res)]
+
+
+def _render_grid():
+    return np.asarray(smoke_sphere(12), np.float32)
+
+
+def _sweep_inputs(views, reverse, seed=0, s=8, n_y=11, n_x=12, n_v=16,
+                  n_u=10):
+    """A random slab, geometry and cotangents as f32 numpy: coefficients
+    and enables (S,) for one view, else (views, S); dt (views, V, U);
+    cotangents (3, views, V, U) and (views, V, U); one slice disabled."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    lead = () if views == 1 else (views,)
+    coeffs = tuple(rng.uniform(lo, hi, lead + (s,)).astype(f)
+                   for lo, hi in ((0.6, 1.3), (-2.0, 3.0), (0.6, 1.3),
+                                  (-2.0, 3.0)))
+    en = np.ones(lead + (s,), f)
+    en[..., rng.integers(1, s - 1)] = 0.0
+    return dict(grid_sc=(rng.random((s, 4, n_y, n_x)) * 0.6).astype(f),
+                coeffs=coeffs, enables=en,
+                dt=rng.uniform(0.5, 1.5, (views, n_v, n_u)).astype(f),
+                d_rgb=rng.normal(size=(3, views, n_v, n_u)).astype(f),
+                d_t=rng.normal(size=(views, n_v, n_u)).astype(f),
+                views=views, reverse=reverse)
+
+
+def _train_scene():
+    """Three perspective views of a 16^3 smoke sphere at 16^2: one view
+    group (so both trainers choose the fused mode unless told not to)."""
+    n = 16
+    gt = np.array(smoke_sphere(n))
+    c = (n - 1) / 2.0
+    jcams = [look_at_perspective((c + dx, c - 3.0 * n, c + 0.4 * n),
+                                 (c, c, c), res_x=16, res_y=16)
+             for dx in (-2.0, 0.0, 2.0)]
+    targets = np.array(jfit.render_all_views(gt, jcams, JRCFG))
+    return gt.shape, jcams, [_tcam(j) for j in jcams], targets
+
+
+def _rows_scene(n=64):
+    """The row-warp trainer tests' half scene (tests/test_torch_warp.py):
+    a 16 x n x n grid seen by two cameras at n^2, one view group that gets
+    a row plan."""
+    rng = np.random.default_rng(11)
+    gshape = (16, n, n, 4)
+    gt = rng.random(gshape, dtype=np.float32) * 0.4
+    c = (7.5, (n - 1) / 2, (n - 1) / 2)
+    s = n / 128
+    jcams = [look_at_perspective((c[2] + dx * s, c[1], -300.0 * s),
+                                 (c[2], c[1], c[0]), res_x=n, res_y=n)
+             for dx in (-12.0, 15.0)]
+    targets = np.asarray(jfit.render_all_views(jnp.asarray(gt), jcams, JRCFG,
+                                               impl="xla"))
+    return gshape, jcams, [_tcam(j) for j in jcams], targets
+
+
+def _raw_params(shape, seed=5):
+    rng = np.random.default_rng(seed)
+    return (np.array(jfit.init_params(shape, True))
+            + rng.normal(0.0, 0.3, shape).astype(np.float32))
+
+
+def _warp_env(warp):
+    return {"TPUVR_WARP": "rows" if warp == "rows" else None}
+
+
+def _step_inputs(scene, warp):
+    """Both views of the scene's one group under ``warp`` ("gather" or
+    "rows"): stacked geometry (numpy), targets, raw parameters, the pick
+    and the group's row plan."""
+    gshape, _, tcams, targets = scene
+    with _env(_warp_env(warp)):
+        (key, (idxs, stacked, _, plan)), = tfit.group_views(
+            tcams, gshape, n_shards=WORLD).items()
+    assert (plan is not None) == (warp == "rows")
+    return dict(key=key, n_views=2, render_cfg=RCFG,
+                stacked={k: v.numpy() for k, v in stacked.items()},
+                targets=targets[idxs], params=_raw_params(gshape),
+                pick=np.array([1, 0]), r0s=np.zeros(2, np.int32),
+                warp_tiling=plan)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return {"gather": _train_scene(), "rows": _rows_scene()}
+
+
+def _cases(scenes, tmp):
+    per_rank = np.random.default_rng(4).normal(
+        size=(WORLD, 10, 3, 5)).astype(np.float32)
+    cases = [(f"all_reduce_{b}", workers.all_reduce_case,
+              dict(per_rank=per_rank, n_buckets=b), {}) for b in BUCKETS]
+    for i, jcam in enumerate(_render_cams()):
+        cases.append((f"render_{i}", workers.render_case,
+                      dict(grid=_render_grid(), cam=_tcam(jcam), cfg=RCFG),
+                      {}))
+    for name, (views, reverse) in SWEEPS.items():
+        for mode, kw in REDUCE.items():
+            cases.append((f"sweep_{name}_{mode}", workers.sweep_grad_case,
+                          dict(_sweep_inputs(views, reverse), **kw), {}))
+    ring_in = _sweep_inputs(2, True, seed=3)
+    cases.append(("ring_vs_one_call", workers.ring_case, dict(
+        grid_sc=ring_in["grid_sc"], coeffs=ring_in["coeffs"],
+        enables=ring_in["enables"], dt=ring_in["dt"].reshape(-1, 10),
+        views=2, reverse=True, ring_chunks=2, seed=9), {}))
+    for warp, mode in STEPS:
+        cases.append((f"step_{warp}_{mode}", workers.step_case,
+                      dict(_step_inputs(scenes[warp], warp),
+                           **STEP_MODES[mode]), {}))
+    gshape, _, tcams, targets = scenes["gather"]
+    for mode, kw in FIT_MODES.items():
+        for fused in (False, True):
+            cases.append((f"fit_{mode}_{fused}", workers.fit_case,
+                          dict(targets=targets, cams=tcams, grid_shape=gshape,
+                               cfg=TrainConfig(**FIT_CFG), render_cfg=RCFG,
+                               fused=fused, run_dir=str(tmp / f"{mode}{fused}"),
+                               **kw), {}))
+    return cases
+
+
+@pytest.fixture(scope="module")
+def ranks(scenes, tmp_path_factory):
+    """Every port-side case on 4 gloo ranks, in one spawn; a rank that
+    fails or hangs fails here (timeout 240 s)."""
+    run_dir = tmp_path_factory.mktemp("dist")
+    out = launch.spawn(workers.run_suite, WORLD, "gloo", "cpu",
+                       (_cases(scenes, run_dir),), timeout_s=240)
+    out[0]["fit_run_dir"] = run_dir
+    return out
+
+
+def _check_grad(got, ref, extra=0.0):
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale + extra)
+
+
+def _reduce_roundoff(partials):
+    """3 roundings of the running sum of 4 partials, per element."""
+    return 3 * 2.0**-24 * float(np.abs(np.stack(partials)).sum(0).max())
+
+
+@pytest.mark.parametrize("n_buckets", BUCKETS)
+def test_bucketed_all_reduce_equals_one_all_reduce(ranks, n_buckets):
+    per_rank = np.random.default_rng(4).normal(
+        size=(WORLD, 10, 3, 5)).astype(np.float32)
+    tol = _reduce_roundoff(list(per_rank))
+    for r in range(WORLD):
+        bucketed, one = ranks[r][f"all_reduce_{n_buckets}"]
+        # gloo may sum a bucket in another order than the whole tensor.
+        np.testing.assert_allclose(bucketed, one, rtol=0, atol=2 * tol)
+        np.testing.assert_allclose(one, per_rank.sum(0), rtol=0, atol=tol)
+        np.testing.assert_array_equal(bucketed,
+                                      ranks[0][f"all_reduce_{n_buckets}"][0])
+
+
+@pytest.mark.parametrize("cam", [0, 1], ids=["ortho", "perspective"])
+def test_render_view_dp_matches_jax_and_one_process(ranks, devices8, cam):
+    jcam = _render_cams()[cam]
+    grid = _render_grid()
+    j_rgb, j_t = jdist.render_view_dp(jnp.asarray(grid), jcam,
+                                      jdist.data_mesh(WORLD), JRCFG,
+                                      impl="xla")
+    t_rgb, t_t = trender.render_view(torch.as_tensor(grid), _tcam(jcam),
+                                     RCFG, device="cpu")
+    for r in range(WORLD):
+        rgb, t = ranks[r][f"render_{cam}"]
+        for got, j_ref, t_ref in ((rgb, j_rgb, t_rgb), (t, j_t, t_t)):
+            np.testing.assert_allclose(got, np.asarray(j_ref), rtol=0,
+                                       atol=1e-5)
+            np.testing.assert_allclose(got, t_ref.numpy(), rtol=0, atol=1e-5)
+    assert float(np.abs(ranks[0][f"render_{cam}"][0]).max()) > 0.01
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_mesh_grad(name):
+    """JAX ``sweep_op(ring=("data", 4, 2))`` on its CPU mesh (the ring's
+    XLA twin: each device's backward, then a psum) for the inputs of
+    ``SWEEPS[name]``, every device's copy."""
+    inp = _sweep_inputs(*SWEEPS[name])
+    v_l = inp["dt"].shape[1] // WORLD
+    op = jvjp.sweep_op(inp["reverse"], 1.0, 0.0, "xla", views=inp["views"],
+                       ring=("data", WORLD, 2))
+
+    def body(g, ay, by, ax, bx, en, dt, d_rgb, d_t):
+        off = (jax.lax.axis_index("data") * v_l).astype(jnp.float32)
+        coeffs = (ay, by + off * ay, ax, bx)
+        _, vjp = jax.vjp(
+            lambda x: op(x, coeffs, en, dt.reshape(-1, dt.shape[-1])), g)
+        (grad,) = vjp((d_rgb.reshape(3, -1, d_rgb.shape[-1]),
+                       d_t.reshape(-1, d_t.shape[-1])))
+        return grad[None]
+
+    out = jax.shard_map(
+        body, mesh=jdist.data_mesh(WORLD),
+        in_specs=(P(),) * 6 + (P(None, "data", None),
+                               P(None, None, "data", None),
+                               P(None, "data", None)),
+        out_specs=P("data"), check_vma=False,
+    )(*map(jnp.asarray, (inp["grid_sc"], *inp["coeffs"], inp["enables"],
+                         inp["dt"], inp["d_rgb"], inp["d_t"])))
+    return np.asarray(out)
+
+
+def _port_rows_grad(inp, r0, r1, row0=False):
+    """The port's single-process gradient of rows [r0, r1) of every view,
+    swept with ``by`` shifted by ``r0 * ay`` or, with ``row0``, at the
+    whole image's positions."""
+    ay, by, ax, bx = map(torch.as_tensor, inp["coeffs"])
+    op = tvjp.sweep_op(inp["reverse"], 1.0, 0.0, "torch", views=inp["views"],
+                       row0=r0 if row0 else 0)
+    g = torch.as_tensor(inp["grid_sc"]).requires_grad_(True)
+    by = by if row0 else by + r0 * ay
+    rgb, t = op(g, (ay, by, ax, bx), torch.as_tensor(inp["enables"]),
+                torch.as_tensor(inp["dt"][:, r0:r1]).flatten(0, 1))
+    (grad,) = torch.autograd.grad((rgb, t), g, (
+        torch.as_tensor(inp["d_rgb"][:, :, r0:r1]).flatten(1, 2),
+        torch.as_tensor(inp["d_t"][:, r0:r1]).flatten(0, 1)))
+    return grad.numpy()
+
+
+@pytest.mark.parametrize("mode", sorted(REDUCE))
+@pytest.mark.parametrize("name", sorted(SWEEPS))
+def test_mesh_sweep_grad_matches_jax_and_one_process(ranks, devices8, name,
+                                                     mode):
+    """``sweep_op`` over the mesh, its gradient summed slab by slab in
+    stream order (``bwd_chunks=2, mesh=``) or through the ring backward
+    (``ring=(mesh, 4, 2)``), on one view and on a 2-view batch (a reverse
+    sweep), on every rank."""
+    inp = _sweep_inputs(*SWEEPS[name])
+    ref = _jax_mesh_grad(name)
+    for d in range(1, WORLD):
+        np.testing.assert_array_equal(ref[d], ref[0])
+    n_v = inp["dt"].shape[1]
+    v_l = n_v // WORLD
+    partials = [_port_rows_grad(inp, r * v_l, (r + 1) * v_l)
+                for r in range(WORLD)]
+    whole = _port_rows_grad(inp, 0, n_v)
+    for r in range(WORLD):
+        got = ranks[r][f"sweep_{name}_{mode}"]
+        _check_grad(got, ref[0], _reduce_roundoff(partials))
+        _check_grad(got, whole)
+        np.testing.assert_array_equal(got, ranks[0][f"sweep_{name}_{mode}"])
+
+
+def test_ring_backward_matches_one_call_and_one_all_reduce(ranks):
+    """The ring backward's slab loop, on the CPU over the backward twin,
+    against the backward in one call then one all-reduce (a reverse 2-view
+    batch, 2 slabs): 1e-5 of max|grad| (the slabs thread the carry as one
+    call does, and a reduction order's few roundings of the 4 partials lie
+    far below it); one all-reduce a slab, and no kernel launch on the
+    CPU."""
+    for r in range(WORLD):
+        got, ref, counts = ranks[r]["ring_vs_one_call"]
+        _check_grad(got, ref)
+        assert counts == {"k6": 0, "ring": 0, "all_reduce": 2}
+        np.testing.assert_array_equal(got, ranks[0]["ring_vs_one_call"][0])
+
+
+_J_CAPTURE = optax.GradientTransformation(
+    lambda p: jnp.zeros_like(p),
+    lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+
+
+@pytest.fixture(scope="module")
+def jax_steps(scenes, devices8):
+    """The JAX package's step (view batch) from the same state, per warp,
+    on its 4-device mesh (bucketed) and on one device: {(warp, mesh):
+    (loss, gradient)}."""
+    out = {}
+    for warp in ("gather", "rows"):
+        gshape, jcams, _, targets = scenes[warp]
+        with _env(_warp_env(warp)):
+            (key, (idxs, stacked, band, tiling)), = jfit.group_views(
+                jcams, gshape, n_shards=WORLD).items()
+        for mesh in (jdist.data_mesh(WORLD), None):
+            step = jfit.make_train_step(key, 2, _J_CAPTURE, JRCFG, True,
+                                        "xla", mesh, band=band,
+                                        warp_tiling=tiling, view_batch=True,
+                                        prestage=True)
+            _, grad, loss = step(jnp.asarray(_raw_params(gshape)),
+                                 jnp.zeros(gshape), stacked,
+                                 jnp.asarray(targets[np.array(idxs)]),
+                                 jnp.asarray([1, 0]), jnp.zeros(2, jnp.int32))
+            out[warp, mesh is not None] = (float(loss), np.asarray(grad))
+    return out
+
+
+@pytest.mark.parametrize("warp,mode", STEPS)
+def test_mesh_step_matches_jax(ranks, jax_steps, warp, mode):
+    """One mesh train step from one state, in each reduction mode (and the
+    view loop), with the gather and the row warp: the loss and the
+    gradient, the same on every rank, against the JAX package's step on
+    one device; and against its mesh step, whose gradient is 4x as large
+    (a fault of the reference, ROADMAP C: its all_gather's transpose sums
+    the image cotangent over the devices, each of which took the whole
+    loss; Adam, invariant to a gradient's scale, hides it in trajectories)
+    and whose three modes differ only in reduction order."""
+    name = f"step_{warp}_{mode}"
+    j_loss, j_grad = jax_steps[warp, False]
+    m_loss, m_grad = jax_steps[warp, True]
+    assert abs(m_loss - j_loss) <= 1e-6 * j_loss
+    _check_grad(m_grad / WORLD, j_grad)
+    for r in range(WORLD):
+        loss, grad = ranks[r][name]
+        assert abs(loss - j_loss) <= 1e-6 * j_loss
+        _check_grad(grad, j_grad)
+        _check_grad(grad, m_grad / WORLD)
+        np.testing.assert_array_equal(grad, ranks[0][name][1])
+
+
+@pytest.fixture(scope="module")
+def jax_fits(scenes, devices8, tmp_path_factory):
+    """JAX ``fit_grid(mesh=data_mesh(4))`` losses, configured
+    (``TPUVR_FUSED_SOFTPLUS=0``) and fused."""
+    gshape, jcams, _, targets = scenes["gather"]
+    out = {}
+    for fused in (False, True):
+        with _env({"TPUVR_FUSED_SOFTPLUS": "1" if fused else "0"}):
+            _, _, hist = jfit.fit_grid(
+                targets, jcams, gshape, JTrainConfig(**FIT_CFG), JRCFG,
+                mesh=jdist.data_mesh(WORLD),
+                run_dir=str(tmp_path_factory.mktemp("jfit")))
+        out[fused] = hist["loss"]
+    return out
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["configured", "fused"])
+@pytest.mark.parametrize("mode", sorted(FIT_MODES))
+def test_fit_grid_on_the_mesh_matches_jax(ranks, jax_fits, mode, fused):
+    """``fit_grid`` over 4 steps on the mesh in each reduction mode has the
+    JAX mesh trainer's loss trajectory, and every rank the same history
+    and parameters."""
+    name = f"fit_{mode}_{fused}"
+    losses, params = ranks[0][name]
+    assert len(losses) == FIT_CFG["steps"] and losses[-1] < losses[0]
+    np.testing.assert_allclose(losses, jax_fits[fused], rtol=2e-3, atol=0)
+    for r in range(1, WORLD):
+        assert ranks[r][name][0] == losses
+        np.testing.assert_array_equal(ranks[r][name][1], params)
+
+
+def test_fit_grid_on_the_mesh_writes_metrics_on_rank_zero(ranks):
+    """Rank 0 alone writes the run directory's metrics: one line a step
+    (the ranks share the directory)."""
+    run = ranks[0]["fit_run_dir"] / "plainFalse"
+    lines = (run / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == FIT_CFG["steps"]
+
+
+@pytest.mark.parametrize("views", [1, 2])
+def test_row_tile_sweeps_where_the_whole_image_does(views):
+    """A row tile swept with ``row0`` is the whole image's rows: the
+    forward's outputs within 1e-6 (the twins' matmuls may sum another
+    number of rows in another order), and the tiles' gradients summed are
+    the whole image's within 1e-5 of max|grad|."""
+    inp = _sweep_inputs(views, views > 1, seed=5)
+    v_l = inp["dt"].shape[1] // WORLD
+    coeffs = tuple(map(torch.as_tensor, inp["coeffs"]))
+    en = torch.as_tensor(inp["enables"])
+    kw = dict(views=views) if views > 1 else {}
+    op = sweep_fwd_views_torch if views > 1 else sweep_fwd_torch
+    whole = op(torch.as_tensor(inp["grid_sc"]), coeffs, en,
+               torch.as_tensor(inp["dt"]).flatten(0, 1), reverse=views > 1,
+               **kw)
+    grads = []
+    for r in range(WORLD):
+        rows = slice(r * v_l, (r + 1) * v_l)
+        tile = op(torch.as_tensor(inp["grid_sc"]), coeffs, en,
+                  torch.as_tensor(inp["dt"][:, rows]).flatten(0, 1),
+                  reverse=views > 1, row0=rows.start, **kw)
+        for got, ref in zip(tile, whole):
+            ref = ref.unflatten(-2, (views, -1))[..., rows, :]
+            np.testing.assert_allclose(got.unflatten(-2, (views, -1)), ref,
+                                       rtol=0, atol=1e-6)
+        grads.append(_port_rows_grad(inp, rows.start, rows.stop, row0=True))
+    _check_grad(np.sum(grads, 0), _port_rows_grad(inp, 0, v_l * WORLD))
+
+
+def test_ring_refusals_match_jax():
+    """Ring size 1, and slabs that do not split over the ring or the JAX
+    kernel's grid steps, raise ValueError in both packages."""
+    inp = _sweep_inputs(1, False)
+    n_v, n_u = inp["dt"].shape[1:]
+    ops = (np.zeros((3, n_v, n_u), np.float32), np.ones((n_v, n_u), np.float32),
+           np.ones((3, n_v, n_u), np.float32), np.zeros((n_v, n_u), np.float32))
+    args = (inp["grid_sc"], inp["coeffs"], inp["enables"], inp["dt"][0], *ops)
+    for size, chunks in ((1, 1), (4, 3), (4, 8)):
+        with pytest.raises(ValueError, match="ring_size|ring_chunks"):
+            jsweep_bwd_ring(*(jax.tree.map(jnp.asarray, a) for a in args),
+                            ring_size=size, ring_chunks=chunks)
+        with pytest.raises(ValueError, match="ring_size|ring_chunks"):
+            sweep_bwd_ring(*(jax.tree.map(torch.as_tensor, a) for a in args),
+                           mesh=DataMesh(None, 0, size), ring_size=size,
+                           ring_chunks=chunks)
+
+
+def test_indivisible_rows_refused_as_in_jax(devices8, scenes):
+    """A mesh whose size does not divide the intermediate rows: both
+    packages' ``render_view_dp`` and the port's ``fit_grid`` raise
+    ValueError (before any collective)."""
+    jcam = _render_cams()[0]
+    with pytest.raises(ValueError, match="divisible"):
+        jdist.render_view_dp(jnp.asarray(_render_grid()), jcam,
+                             jdist.data_mesh(3), JRCFG, impl="xla")
+    three = DataMesh(None, 0, 3)
+    with pytest.raises(ValueError, match="divisible"):
+        render_view_dp(torch.as_tensor(_render_grid()), _tcam(jcam), three,
+                       RCFG, device="cpu")
+    gshape, _, tcams, targets = scenes["gather"]
+    with pytest.raises(ValueError, match="divisible"):
+        tfit.fit_grid(targets, tcams, gshape, TrainConfig(**FIT_CFG), RCFG,
+                      mesh=three, device="cpu")
+
+
+def test_z_mesh_refused():
+    """The z-sharded grid is a later slice: a mesh with a "z" axis raises
+    NotImplementedError, lighting and grad_ring or not (the JAX trainer
+    runs it and drops both silently)."""
+    z_mesh = SimpleNamespace(shape={"data": 2, "z": 2}, rank=0, world=4)
+    grid = np.zeros((4, 4, 4, 4), np.float32)
+    cam = _tcam(_render_cams(4, 4)[0])
+    for kw in ({}, dict(grad_ring=True, bwd_chunks=2)):
+        with pytest.raises(NotImplementedError, match="'z' axis"):
+            tfit.fit_grid(np.zeros((1, 4, 4, 3)), [cam], grid.shape,
+                          mesh=z_mesh, device="cpu", **kw)

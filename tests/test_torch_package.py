@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -128,11 +129,15 @@ def test_card_ops_are_autograd_functions(monkeypatch):
 
 
 def test_fit_grid_refuses_a_mesh():
+    """A mesh with a "z" axis (the z-sharded grid, a later slice) raises
+    before anything runs, where the JAX package would silently drop
+    lighting and grad_ring on it."""
     from tpuvr_torch.train import fit
 
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    z_mesh = SimpleNamespace(shape={"data": 1, "z": 2}, rank=0, world=2)
+    with pytest.raises(NotImplementedError, match="'z' axis"):
         fit.fit_grid(np.zeros((1, 4, 4, 3)), [configs.front_ortho(4, 4)],
-                     (4, 4, 4, 4), mesh=object(), device="cpu")
+                     (4, 4, 4, 4), mesh=z_mesh, device="cpu")
 
 
 def test_build_digest_tracks_sources(tmp_path, monkeypatch):

@@ -21,6 +21,7 @@ import torch
 from tpuvr.kernels import sweep_bwd as jsweep_bwd
 from tpuvr.kernels.sweep_xla import sweep_bwd_xla, sweep_fwd_xla
 from tpuvr.ops import vjp as jvjp
+from tpuvr_torch.dist.init import DataMesh
 from tpuvr_torch.kernels import sweep_bwd as tsweep_bwd
 from tpuvr_torch.kernels import sweep_torch as st
 from tpuvr_torch.ops import vjp as tvjp
@@ -227,13 +228,23 @@ def test_bwd_wrapper_runs_twin_on_cpu():
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kw", [dict(views=2, ring=("data", 2, 1)),
-                                dict(ring=("data", 2, 1))])
-def test_sweep_op_refuses_later_slices(kw):
-    """The ring backward (B11, a view batch's backward with an in-kernel
-    ring all-reduce) is the multi-GPU slice's; a view batch alone is
-    ported (tests/test_torch_view_batch.py)."""
-    with pytest.raises(NotImplementedError, match="slice"):
+_ONE_RANK = DataMesh(None, 0, 1)
+_TWO_RANKS = DataMesh(None, 0, 2)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(views=2, ring=(None, 2, 1)), "needs a mesh"),
+    (dict(ring=(_ONE_RANK, 1, 1)), "ring_size >= 2"),
+    (dict(ring=(_TWO_RANKS, 2, 1), bwd_chunks=2), "mutually exclusive"),
+    (dict(ring=(_TWO_RANKS, 2, 1), mesh=_TWO_RANKS), "mutually exclusive"),
+    (dict(ring=(_TWO_RANKS, 4, 1)), "not the mesh"),
+], ids=[f"kw{i}" for i in range(5)])
+def test_sweep_op_refuses_later_slices(kw, match):
+    """What the ring backward (B11's port, tests/test_torch_dist.py)
+    refuses when the op is built, as the JAX package does: a ring without
+    a mesh, a ring of fewer than 2 ranks, a ring beside ``bwd_chunks`` or
+    ``mesh``; and a ring size that is not the mesh's."""
+    with pytest.raises(ValueError, match=match):
         tvjp.sweep_op(False, 1.0, 0.0, "torch", **kw)
 
 

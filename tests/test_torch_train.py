@@ -10,6 +10,7 @@ are compared only where |g| > 1e-6, well above the gradient's roundoff
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -358,10 +359,15 @@ def test_fused_matches_materialized(scene, tmp_path, steps_per_call):
 
 def test_fit_grid_refuses_unported_options(scene, tmp_path):
     shape, _, tcams, targets = scene
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tfit.fit_grid(targets, tcams, shape, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tfit.fit_grid(targets, tcams, shape, grad_ring=True, device="cpu")
+    z_mesh = SimpleNamespace(shape={"data": 2, "z": 2}, rank=0, world=4)
+    with pytest.raises(NotImplementedError, match="'z' axis"):
+        tfit.fit_grid(targets, tcams, shape, mesh=z_mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="'z' axis"):
+        tfit.make_train_step((2, False), 2, tfit.Adam(0.1), RCFG, True, None,
+                             mesh=z_mesh, grad_ring=True)
+    for kw in (dict(grad_ring=True), dict(bwd_chunks=2)):
+        with pytest.raises(ValueError, match="mesh"):
+            tfit.fit_grid(targets, tcams, shape, device="cpu", **kw)
     with pytest.raises(ValueError, match="fused"):
         tfit.make_train_step((2, False), 2, tfit.Adam(0.1), RCFG, False,
                              None, kernel_softplus=True)

@@ -1,5 +1,6 @@
 """Frozen config dataclasses: the same fields and defaults as the JAX
-package's ``RenderConfig``, ``LightingConfig`` and ``TrainConfig``.
+package's ``RenderConfig``, ``LightingConfig``, ``MeshConfig`` and
+``TrainConfig``.
 
 Fields that select paths this package does not run yet are kept so that a
 config moves across unchanged; the render path raises on the values it
@@ -75,6 +76,33 @@ class LightingConfig:
     up: Tuple[float, float, float] = (0.0, 0.0, 1.0)
     secondary_dt: float = 1.0
     detach: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Rank layout of the distributed paths (``tpuvr_torch.dist``).
+
+    Attributes:
+      data: ranks sharding rays (the replicated-grid data-parallel path).
+      zshard: ranks sharding the grid in z-slabs; 1 disables grid
+        sharding. Values > 1 are kept so a config moves across unchanged,
+        but ``fit_grid`` refuses a mesh with a "z" axis > 1 (not ported
+        yet).
+      grad_buckets: all-reduces the grid gradient is cut into after the
+        backward (the reduction that does not overlap it).
+      bwd_chunks: slabs the backward sweep is cut into; > 1 all-reduces
+        each slab's gradient as it comes out, in stream order. 1 disables
+        chunking.
+      grad_ring: the ring backward (``tpuvr_torch.kernels.ring_bwd``):
+        each slab's all-reduce overlaps the next slab's backward kernel.
+        ``bwd_chunks`` doubles as its slab count.
+    """
+
+    data: int = 1
+    zshard: int = 1
+    grad_buckets: int = 4
+    bwd_chunks: int = 1
+    grad_ring: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -75,7 +75,10 @@ CONFIGS = {
         "lighting": None,
         "train": TrainConfig(lr=5e-2, steps=2000, views_per_batch=8,
                              ckpt_every=200),
-        "mesh": "data",  # all local devices; one card runs without a mesh
+        # Ray data parallelism over every rank, one rank per card:
+        # fit_grid(mesh=tpuvr_torch.dist.data_mesh()) on each; one card
+        # trains without a mesh.
+        "mesh": "data",
     },
 }
 

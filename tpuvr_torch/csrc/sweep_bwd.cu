@@ -28,8 +28,9 @@
 //   (b) one thread per voxel (k, y, x) loops over the views in order. For
 //       view w it finds the rays of that view whose taps reach the voxel by
 //       solving |v*ay + by - y| < 1 for v with w's scalars (widened by one
-//       ray), computes each candidate's weight with the forward's exact f32
-//       position formula, so the weights equal the forward's bit for bit,
+//       ray, and cut to the planes' rows [row0, row0 + Vp)), computes
+//       each candidate's weight with the forward's exact f32 position
+//       formula, so the weights equal the forward's bit for bit,
 //       and gathers the row stage (over v) before the column stage (over
 //       u), in the tier's arithmetic, as in the plain twin. The view
 //       partials are added in f32 and the voxel's gradient is written once:
@@ -75,7 +76,8 @@ bwd_rays_kernel(const float* __restrict__ grid,   // (S, 4, Y, X)
                 float* __restrict__ q,            // (Vt, U) carry in/out
                 float4* __restrict__ ds,          // (n_k, Vt, U) out
                 int k0, int n_k, int S, int Y, int X, int Vp, int U,
-                int views, int reverse, float sigma_scale, float eps) {
+                int views, int row0, int reverse, float sigma_scale,
+                float eps) {
   extern __shared__ float sm[];  // this view's slab (5, n_k) scalars
   const int w = blockIdx.z;
   const float* sw = scal + static_cast<size_t>(w) * 5 * S;
@@ -102,7 +104,7 @@ bwd_rays_kernel(const float* __restrict__ grid,   // (S, 4, Y, X)
   const float db = dbias[ray];
   const float d0 = dc[ray], d1 = dc[out_plane + ray],
               d2 = dc[2 * out_plane + ray];
-  const float fv = static_cast<float>(v);
+  const float fv = static_cast<float>(row0 + v);
   const float fu = static_cast<float>(u);
   float t = trans[ray];
   float qq = q[ray];
@@ -157,7 +159,7 @@ bwd_voxels_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
                   const float4* __restrict__ ds,   // (n_k, Vt, U)
                   float* __restrict__ grad,        // (S, 4, Y, X)
                   int k0, int S, int Y, int X, int Vp, int U, int views,
-                  int reverse) {
+                  int row0, int reverse) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int j = blockIdx.z;
@@ -174,7 +176,8 @@ bwd_voxels_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
                 bx = sw[3 * S + k], en = sw[4 * S + k];
     if (en == 0.0f) continue;
     int v_lo, v_hi, u_lo, u_hi;
-    rays_reaching(y, ay, by, Vp, &v_lo, &v_hi);
+    rays_reaching(y, ay, by, row0 + Vp, &v_lo, &v_hi);
+    v_lo = max(v_lo, row0);
     rays_reaching(x, ax, bx, U, &u_lo, &u_hi);
     const float4* dsw = ds + (static_cast<size_t>(j) * views + w) * view_rays;
     Acc<P> acc[4];
@@ -185,7 +188,7 @@ bwd_voxels_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
       for (int v = v_lo; v <= v_hi; ++v) {
         const float aw = tent_weight(v, ay, by, y);
         if (aw == 0.0f) continue;
-        const float4 d = dsw[static_cast<size_t>(v) * U + u];
+        const float4 d = dsw[static_cast<size_t>(v - row0) * U + u];
         row[0].add(aw, d.x);
         row[1].add(aw, d.y);
         row[2].add(aw, d.z);
@@ -210,8 +213,8 @@ cudaError_t run(const float* grid, const float* scal, const float* dt,
                 const float* dbias, const float* dc, const float* trans0,
                 const float* q0, float* grad, float* trans, float* q,
                 float4* ds, int slab, int S, int Y, int X, int Vp, int U,
-                int views, int reverse, float sigma_scale, float eps,
-                cudaStream_t stream) {
+                int views, int row0, int reverse, float sigma_scale,
+                float eps, cudaStream_t stream) {
   const size_t vu = static_cast<size_t>(views) * Vp * U * sizeof(float);
   cudaError_t err = cudaMemcpyAsync(trans, trans0, vu,
                                     cudaMemcpyDeviceToDevice, stream);
@@ -226,14 +229,14 @@ cudaError_t run(const float* grid, const float* scal, const float* dt,
     bwd_rays_kernel<P, SP><<<ray_blocks, block,
                              5 * static_cast<size_t>(n_k) * sizeof(float),
                              stream>>>(grid, scal, dt, dbias, dc, trans, q, ds,
-                                       k0, n_k, S, Y, X, Vp, U, views, reverse,
-                                       sigma_scale, eps);
+                                       k0, n_k, S, Y, X, Vp, U, views, row0,
+                                       reverse, sigma_scale, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const dim3 voxel_blocks((X + kBlockU - 1) / kBlockU,
                             (Y + kBlockV - 1) / kBlockV, n_k);
     bwd_voxels_kernel<P, SP><<<voxel_blocks, block, 0, stream>>>(
-        grid, scal, ds, grad, k0, S, Y, X, Vp, U, views, reverse);
+        grid, scal, ds, grad, k0, S, Y, X, Vp, U, views, row0, reverse);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -245,21 +248,22 @@ cudaError_t dispatch(int precision, const float* grid, const float* scal,
                      const float* dt, const float* dbias, const float* dc,
                      const float* trans0, const float* q0, float* grad,
                      float* trans, float* q, float4* ds, int slab, int S,
-                     int Y, int X, int Vp, int U, int views, int reverse,
-                     float sigma_scale, float eps, cudaStream_t stream) {
+                     int Y, int X, int Vp, int U, int views, int row0,
+                     int reverse, float sigma_scale, float eps,
+                     cudaStream_t stream) {
   switch (precision) {
     case kHighest:
       return run<kHighest, SP>(grid, scal, dt, dbias, dc, trans0, q0, grad,
                                trans, q, ds, slab, S, Y, X, Vp, U, views,
-                               reverse, sigma_scale, eps, stream);
+                               row0, reverse, sigma_scale, eps, stream);
     case kHigh:
       return run<kHigh, SP>(grid, scal, dt, dbias, dc, trans0, q0, grad,
                             trans, q, ds, slab, S, Y, X, Vp, U, views,
-                            reverse, sigma_scale, eps, stream);
+                            row0, reverse, sigma_scale, eps, stream);
     case kDefault:
       return run<kDefault, SP>(grid, scal, dt, dbias, dc, trans0, q0, grad,
                                trans, q, ds, slab, S, Y, X, Vp, U, views,
-                               reverse, sigma_scale, eps, stream);
+                               row0, reverse, sigma_scale, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -270,25 +274,28 @@ cudaError_t dispatch(int precision, const float* grid, const float* scal,
 
 // C entry: the whole backward on `stream`, two launches per slab of `slab`
 // slices (after copying the carry in). `scal` is (views, 5, S); the ray
-// planes stack `views` planes of Vp rows (views = 1: one view); `ds` is
-// caller-allocated scratch of slab * views * Vp * U float4. Allocates
-// nothing, does not synchronise; returns the first CUDA error (0 on
-// success).
+// planes stack `views` planes of Vp rows (views = 1: one view), rows
+// [row0, row0 + Vp) of each view's intermediate image (0: the whole image;
+// see sweep_fwd.cu); `ds` is caller-allocated scratch of slab * views * Vp *
+// U float4. Allocates nothing, does not synchronise; returns the first CUDA
+// error (0 on success).
 extern "C" int tpuvr_sweep_bwd(const float* grid, const float* scal,
                                const float* dt, const float* dbias,
                                const float* dc, const float* trans0,
                                const float* q0, float* grad, float* trans,
                                float* q, float* ds, int slab, int S, int Y,
-                               int X, int Vp, int U, int views, int reverse,
-                               float sigma_scale, float eps, int precision,
-                               int softplus, cudaStream_t stream) {
+                               int X, int Vp, int U, int views, int row0,
+                               int reverse, float sigma_scale, float eps,
+                               int precision, int softplus,
+                               cudaStream_t stream) {
   using namespace tpuvr;
   float4* ds4 = reinterpret_cast<float4*>(ds);
   return softplus
              ? dispatch<true>(precision, grid, scal, dt, dbias, dc, trans0,
                               q0, grad, trans, q, ds4, slab, S, Y, X, Vp, U,
-                              views, reverse, sigma_scale, eps, stream)
+                              views, row0, reverse, sigma_scale, eps, stream)
              : dispatch<false>(precision, grid, scal, dt, dbias, dc, trans0,
                                q0, grad, trans, q, ds4, slab, S, Y, X, Vp, U,
-                               views, reverse, sigma_scale, eps, stream);
+                               views, row0, reverse, sigma_scale, eps,
+                               stream);
 }

@@ -20,11 +20,13 @@
 // two views and holds only its view's (5, S) scalars (ay, by, ax, bx,
 // enable) in shared memory, 40 KB at S = 2048. Ray (w, v, u) is stacked row
 // w * Vp + v. Per traversal step k (grid slice S-1-k when reverse):
-//   pos_y = v*ay[w,k] + by[w,k], pos_x = u*ax[w,k] + bx[w,k]     (f32)
+//   pos_y = (row0+v)*ay[w,k] + by[w,k], pos_x = u*ax[w,k] + bx[w,k] (f32)
 //   (sigma, r, g, b) = tent samples; sigma = max(sigma, 0)
 //   att = expf(-(s*sigma)*dt[w,v,u]);  rgb += T*(1-att)*(r,g,b);  T *= att
 // The row v is local to its view (batch_positions' form), so a view's rays
-// are bit-identical whatever the batch. A step with en[w,k] == 0 is skipped,
+// are bit-identical whatever the batch; a tile of rows [row0, row0 + Vp)
+// (one rank's share of each view) samples at (row0 + v)*ay + by, so its
+// rays are bit-identical to the whole image's. A step with en[w,k] == 0 is skipped,
 // which is bit-identical to sigma*0 (and is what parking a disabled view's
 // rows at -3*n_y does on the TPU); so is a step whose position lies outside
 // the tents' support (all taps read 0). rgb and T stay in registers and are
@@ -71,8 +73,8 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
                  const float* __restrict__ dt,    // (views*Vp, U)
                  float* __restrict__ rgb,         // (3, views*Vp, U)
                  float* __restrict__ trans,       // (views*Vp, U)
-                 int S, int Y, int X, int Vp, int U, int views, int reverse,
-                 float sigma_scale, float eps) {
+                 int S, int Y, int X, int Vp, int U, int views, int row0,
+                 int reverse, float sigma_scale, float eps) {
   extern __shared__ float sm[];  // this view's (5, S) scalars
   const int w = blockIdx.z;
   const float* sw = scal + static_cast<size_t>(w) * 5 * S;
@@ -92,7 +94,7 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
   const size_t plane = static_cast<size_t>(Y) * X;
   const size_t ray = (static_cast<size_t>(w) * Vp + v) * U + u;
   const float dtr = dt[ray];
-  const float fv = static_cast<float>(v);
+  const float fv = static_cast<float>(row0 + v);
   const float fu = static_cast<float>(u);
   float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, t = 1.0f;
 
@@ -129,14 +131,14 @@ sweep_fwd_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
 template <int P, bool SP>
 cudaError_t launch(const float* grid, const float* scal, const float* dt,
                    float* rgb, float* trans, int S, int Y, int X, int Vp,
-                   int U, int views, int reverse, float sigma_scale,
-                   float eps, cudaStream_t stream) {
+                   int U, int views, int row0, int reverse,
+                   float sigma_scale, float eps, cudaStream_t stream) {
   const dim3 block(kBlockU, kBlockV);
   const dim3 blocks((U + kBlockU - 1) / kBlockU, (Vp + kBlockV - 1) / kBlockV,
                     views);
   const size_t smem = 5 * static_cast<size_t>(S) * sizeof(float);
   sweep_fwd_kernel<P, SP><<<blocks, block, smem, stream>>>(
-      grid, scal, dt, rgb, trans, S, Y, X, Vp, U, views, reverse,
+      grid, scal, dt, rgb, trans, S, Y, X, Vp, U, views, row0, reverse,
       sigma_scale, eps);
   return cudaGetLastError();
 }
@@ -144,18 +146,21 @@ cudaError_t launch(const float* grid, const float* scal, const float* dt,
 template <bool SP>
 int dispatch(int precision, const float* grid, const float* scal,
              const float* dt, float* rgb, float* trans, int S, int Y, int X,
-             int Vp, int U, int views, int reverse, float sigma_scale,
-             float eps, cudaStream_t stream) {
+             int Vp, int U, int views, int row0, int reverse,
+             float sigma_scale, float eps, cudaStream_t stream) {
   switch (precision) {
     case kHighest:
       return launch<kHighest, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
-                                  views, reverse, sigma_scale, eps, stream);
+                                  views, row0, reverse, sigma_scale, eps,
+                                  stream);
     case kHigh:
       return launch<kHigh, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
-                               views, reverse, sigma_scale, eps, stream);
+                               views, row0, reverse, sigma_scale, eps,
+                               stream);
     case kDefault:
       return launch<kDefault, SP>(grid, scal, dt, rgb, trans, S, Y, X, Vp, U,
-                                  views, reverse, sigma_scale, eps, stream);
+                                  views, row0, reverse, sigma_scale, eps,
+                                  stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -166,19 +171,22 @@ int dispatch(int precision, const float* grid, const float* scal,
 
 // C entry: launches on `stream`, allocates nothing, does not synchronise.
 // `scal` is (views, 5, S); dt and the outputs stack `views` planes of Vp
-// rows (views = 1: one view). Returns the CUDA error of the launch (0 on
-// success).
+// rows (views = 1: one view). `row0`: the planes hold rows [row0, row0 +
+// Vp) of each view's intermediate image, row v sampling at position
+// (row0 + v)*ay + by as the whole image's row does (0: the whole image).
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int tpuvr_sweep_fwd(const float* grid, const float* scal,
                                const float* dt, float* rgb, float* trans,
                                int S, int Y, int X, int Vp, int U, int views,
-                               int reverse, float sigma_scale, float eps,
-                               int precision, int softplus,
+                               int row0, int reverse, float sigma_scale,
+                               float eps, int precision, int softplus,
                                cudaStream_t stream) {
   using namespace tpuvr;
   return softplus
              ? dispatch<true>(precision, grid, scal, dt, rgb, trans, S, Y, X,
-                              Vp, U, views, reverse, sigma_scale, eps, stream)
+                              Vp, U, views, row0, reverse, sigma_scale, eps,
+                              stream)
              : dispatch<false>(precision, grid, scal, dt, rgb, trans, S, Y,
-                               X, Vp, U, views, reverse, sigma_scale, eps,
-                               stream);
+                               X, Vp, U, views, row0, reverse, sigma_scale,
+                               eps, stream);
 }

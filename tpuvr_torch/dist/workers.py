@@ -1,0 +1,175 @@
+"""Cases run on every rank of a :func:`tpuvr_torch.dist.launch.spawn`.
+
+``spawn`` pickles its function by reference, so what a rank runs must be
+importable from the package: a rank then imports only ``torch`` and
+``tpuvr_torch``. :func:`run_suite` runs a list of the cases below in one
+start of the ranks (each case gets the mesh first) and returns their
+results by name; the inputs are numpy arrays and the package's own
+configs and cameras, the same on every rank.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from tpuvr_torch.dist.init import all_reduce, bucketed_all_reduce, data_mesh
+
+
+def run_suite(cases, device="cpu"):
+    """Run ``[(name, fn, kwargs, env), ...]`` in order on this rank, each
+    as ``fn(mesh, device=device, **kwargs)`` with the environment
+    variables of ``env`` set (None unsets one) for its duration; returns
+    ``{name: result}``."""
+    mesh = data_mesh()
+    out = {}
+    for name, fn, kwargs, env in cases:
+        saved = {k: os.environ.get(k) for k in env}
+        try:
+            for k, v in env.items():
+                _set_env(k, v)
+            out[name] = fn(mesh, device=device, **kwargs)
+        finally:
+            for k, v in saved.items():
+                _set_env(k, v)
+    return out
+
+
+def _set_env(name, value):
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def _t(a, device):
+    return torch.as_tensor(np.asarray(a), device=device)
+
+
+def all_reduce_case(mesh, *, device, per_rank, n_buckets):
+    """Rank r contributes ``per_rank[r]``: its bucketed all-reduce and one
+    all-reduce of the same tensor."""
+    x = _t(per_rank[mesh.rank], device)
+    one = x.clone()
+    all_reduce(one, mesh)
+    return bucketed_all_reduce(x.clone(), mesh, n_buckets), one
+
+
+def render_case(mesh, *, device, grid, cam, cfg):
+    """``render_view_dp`` of a numpy grid."""
+    from tpuvr_torch.dist.replicated import render_view_dp
+
+    return render_view_dp(_t(grid, device), cam, mesh, cfg, device=device)
+
+
+def sweep_grad_case(mesh, *, device, grid_sc, coeffs, enables, dt, d_rgb,
+                    d_t, views, reverse, bwd_chunks=1, ring_chunks=None):
+    """The gradient of ``sweep_op`` summed over the mesh, each rank
+    sweeping rows [r V/n, (r + 1) V/n) of every view: ``dt`` is
+    (views, V, U), the cotangents (3, views, V, U) and (views, V, U), the
+    coefficients and enables (S,) for one view or (views, S). With
+    ``ring_chunks`` through the ring backward, else slab by slab
+    (``bwd_chunks`` slabs) in stream order."""
+    from tpuvr_torch.ops.vjp import sweep_op
+
+    n_v = dt.shape[1]
+    v_l = n_v // mesh.world
+    rows = slice(mesh.rank * v_l, (mesh.rank + 1) * v_l)
+    if ring_chunks is None:
+        kw = dict(bwd_chunks=bwd_chunks, mesh=mesh)
+    else:
+        kw = dict(ring=(mesh, mesh.world, ring_chunks))
+    op = sweep_op(reverse, 1.0, 0.0, "torch", views=views, row0=rows.start,
+                  **kw)
+    g = _t(grid_sc, device).requires_grad_(True)
+    rgb, trans = op(g, tuple(_t(c, device) for c in coeffs),
+                    _t(enables, device),
+                    _t(dt[:, rows], device).flatten(0, 1))
+    d_rgb = _t(d_rgb[:, :, rows], device).flatten(1, 2)
+    d_t = _t(d_t[:, rows], device).flatten(0, 1)
+    (grad,) = torch.autograd.grad((rgb, trans), g, (d_rgb, d_t))
+    return grad
+
+
+def row_tile(args, views, mesh):
+    """This rank's rows [r V/n, (r + 1) V/n) of every view of a sweep's
+    inputs (grid, coefficients, enables, dt planes stacked along V): the
+    inputs with the dt planes cut to the rows, and the first row (the
+    sweeps' ``row0``)."""
+    grid_sc, coeffs, enables, dt = args
+    v_pv = dt.shape[0] // views
+    v_l = v_pv // mesh.world
+    r0 = mesh.rank * v_l
+    dt = dt.reshape(views, v_pv, -1)[:, r0:r0 + v_l].flatten(0, 1)
+    return (grid_sc, coeffs, enables, dt.contiguous()), r0
+
+
+def ring_case(mesh, *, device, grid_sc, coeffs, enables, dt, views, reverse,
+              ring_chunks, seed=0):
+    """The ring backward of this rank's row tile (``dt`` (views * V, U),
+    the coefficients and enables (S,) or (views, S)) against the backward
+    in one call then one all-reduce, on random cotangents: (ring gradient,
+    reference, {"k6": backward kernel launches, "ring": ring launches,
+    "all_reduce": all-reduces} of the ring call)."""
+    from tpuvr_torch.dist import init
+    from tpuvr_torch.kernels import ring_bwd
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+
+    args, row0 = row_tile((_t(grid_sc, device),
+                           tuple(_t(c, device) for c in coeffs),
+                           _t(enables, device), _t(dt, device)), views, mesh)
+    kw = dict(reverse=reverse, views=views, row0=row0)
+    rgb, trans = ksweep.sweep_fwd(*args, **kw)
+    gen = torch.Generator(device=device).manual_seed(seed + mesh.rank)
+    d_rgb = torch.randn(rgb.shape, generator=gen, device=device)
+    d_t = torch.randn(trans.shape, generator=gen, device=device)
+    ref = kbwd.sweep_bwd(*args, rgb, trans, d_rgb, d_t, **kw)
+    init.all_reduce(ref, mesh)
+    k6, ring, reduced = (sum(kbwd.launches.values()), ring_bwd.launches,
+                         init.collectives["all_reduce"])
+    got = ring_bwd.sweep_bwd_ring(*args, rgb, trans, d_rgb, d_t, mesh=mesh,
+                                  ring_size=mesh.world,
+                                  ring_chunks=ring_chunks, **kw)
+    return got, ref, {
+        "k6": sum(kbwd.launches.values()) - k6,
+        "ring": ring_bwd.launches - ring,
+        "all_reduce": init.collectives["all_reduce"] - reduced}
+
+
+class CaptureGrad:
+    """An optimizer whose state after a step is the step's gradient."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state):
+        return torch.zeros_like(grads), grads
+
+
+def step_case(mesh, *, device, key, n_views, render_cfg, params, stacked,
+              targets, pick, r0s, **step_kw):
+    """One ``make_train_step`` step on the mesh from raw ``params``:
+    (loss, gradient)."""
+    from tpuvr_torch.train.fit import make_train_step
+
+    step = make_train_step(key, n_views, CaptureGrad(), render_cfg, True,
+                           None, mesh=mesh, **step_kw)
+    geom = {k: _t(v, device) for k, v in stacked.items()}
+    _, grad, loss = step(_t(params, device), None, geom,
+                         _t(targets, device), pick, r0s)
+    return float(loss), grad
+
+
+def fit_case(mesh, *, device, targets, cams, grid_shape, cfg, render_cfg,
+             run_dir, **fit_kw):
+    """``fit_grid`` on the mesh (rank 0 writes to ``run_dir``): the loss
+    history and the final raw parameters."""
+    from tpuvr_torch.train.fit import fit_grid
+
+    _, params, hist = fit_grid(targets, cams, grid_shape, cfg, render_cfg,
+                               mesh=mesh, run_dir=run_dir, device=device,
+                               **fit_kw)
+    return hist["loss"], params

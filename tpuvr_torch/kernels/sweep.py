@@ -30,7 +30,7 @@ _MAX_VIEWS = 65535  # the kernels put the view on gridDim.z
 
 def _entry():
     fn = _build.load("sweep_fwd").tpuvr_sweep_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -88,7 +88,7 @@ def scalar_table(coeffs, enables, views, s, device):
 def sweep_fwd(
     grid_sc, coeffs, enables, dt_map,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest", softplus=False, views=1,
+    precision="highest", softplus=False, views=1, row0=0,
 ):
     """Forward sweep. Returns (rgb (3, V, U), trans (V, U)).
 
@@ -99,13 +99,16 @@ def sweep_fwd(
     ``views`` > 1: a view batch, as the JAX package's: coeffs and enables
     are (views, S), and dt_map and the outputs stack the views' planes
     along V (row r is row r % (V / views) of view r // (V / views)).
+    ``row0``: the planes hold rows [row0, row0 + V / views) of each view's
+    image, row v sampling where the whole image's row row0 + v does (one
+    rank's row tile; 0 is the whole image).
     With ``early_stop_eps`` > 0 the kernel stops each ray at its own
     T < eps; the twin stops all rays (of a view) at the global max, and
     the two agree within eps * max|colour| (see the kernel source).
     """
     kw = dict(reverse=reverse, sigma_scale=sigma_scale,
               early_stop_eps=early_stop_eps, precision=precision,
-              softplus=softplus)
+              softplus=softplus, row0=row0)
     if not grid_sc.is_cuda:
         if views == 1:
             return sweep_fwd_torch(grid_sc, coeffs, enables, dt_map, **kw)
@@ -126,8 +129,9 @@ def sweep_fwd(
         err = _entry()(
             grid_sc.data_ptr(), scal.data_ptr(), dt_map.data_ptr(),
             rgb.data_ptr(), trans.data_ptr(), s, n_y, n_x, v_pv, n_u, views,
-            int(bool(reverse)), float(sigma_scale), float(early_stop_eps),
-            PRECISIONS.index(precision), int(bool(softplus)),
+            int(row0), int(bool(reverse)), float(sigma_scale),
+            float(early_stop_eps), PRECISIONS.index(precision),
+            int(bool(softplus)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

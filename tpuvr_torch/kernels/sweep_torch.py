@@ -32,10 +32,10 @@ import torch
 PRECISIONS = ("highest", "high", "default")
 
 
-def _interp_matrices(ay, by, ax, bx, n_v, n_y, n_x, n_u, dtype):
+def _interp_matrices(ay, by, ax, bx, n_v, n_y, n_x, n_u, dtype, row0=0):
     """Tent operators of one slice.
 
-    A[i, y] = max(0, 1 - |i*ay + by - y|)   (V, Y) row resample
+    A[i, y] = max(0, 1 - |(row0 + i)*ay + by - y|)   (V, Y) row resample
     B[x, j] = max(0, 1 - |j*ax + bx - x|)   (X, U) column resample
 
     The scalars may be 0-d tensors or floats; positions are evaluated in
@@ -48,7 +48,7 @@ def _interp_matrices(ay, by, ax, bx, n_v, n_y, n_x, n_u, dtype):
         return torch.as_tensor(a, dtype=pt, device=dev)
 
     ay, by, ax, bx = scalar(ay), scalar(by), scalar(ax), scalar(bx)
-    iv = torch.arange(n_v, dtype=pt, device=dev)[:, None]
+    iv = torch.arange(row0, row0 + n_v, dtype=pt, device=dev)[:, None]
     yy = torch.arange(n_y, dtype=pt, device=dev)[None, :]
     mat_a = torch.clamp_min(1.0 - torch.abs(iv * ay + by - yy), 0.0)
     ju = torch.arange(n_u, dtype=pt, device=dev)[None, :]
@@ -112,7 +112,7 @@ def softplus_slice(sl):
 def sweep_fwd_torch(
     grid_sc, coeffs, enables, dt_map,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest", softplus=False,
+    precision="highest", softplus=False, row0=0,
 ):
     """Forward sweep. Returns (rgb (3, V, U), trans (V, U)).
 
@@ -121,6 +121,8 @@ def sweep_fwd_torch(
     traversal order; dt_map: (V, U). ``reverse`` visits grid slices in
     descending order. ``softplus``: the density channel holds raw
     parameters, and each slice's density is softplus'd before resampling.
+    ``row0``: dt_map holds rows [row0, row0 + V) of the image, row v
+    sampling at (row0 + v)*ay + by (a row tile; 0 is the whole image).
     """
     dtype = grid_sc.dtype
     s, _, n_y, n_x = grid_sc.shape
@@ -138,7 +140,7 @@ def sweep_fwd_torch(
         if ert:
             go = go & (tmax >= early_stop_eps)
         mat_a, mat_b = _interp_matrices(
-            ay[k], by[k], ax[k], bx[k], n_v, n_y, n_x, n_u, dtype
+            ay[k], by[k], ax[k], bx[k], n_v, n_y, n_x, n_u, dtype, row0
         )
         smp = resample(sl, mat_a, mat_b, precision)
         sigma = torch.clamp_min(smp[0], 0.0)
@@ -161,7 +163,7 @@ def sweep_dbias(d_color, c_final, d_trans, t_final):
 def sweep_bwd_torch(
     grid_sc, coeffs, enables, dt_map, c_final, t_final, d_color, d_trans,
     *, reverse=False, sigma_scale=1.0, early_stop_eps=0.0,
-    precision="highest", softplus=False, carry=None,
+    precision="highest", softplus=False, carry=None, row0=0,
 ):
     """Backward sweep: the (S, 4, Y, X) gradient of the forward's outputs'
     cotangents ``d_color`` (3, V, U) and ``d_trans`` (V, U) with respect to
@@ -170,7 +172,8 @@ def sweep_bwd_torch(
     ``c_final``/``t_final`` are the forward's outputs. ``carry``: optional
     (trans0, q0) recompute state entering this call, for a slab of the
     slices; with it the call returns ``(grad, (trans_fin, q_fin))``. The
-    identity carry is (ones, zeros).
+    identity carry is (ones, zeros). ``row0``: a row tile, as in
+    :func:`sweep_fwd_torch`.
     """
     dtype = grid_sc.dtype
     dev = grid_sc.device
@@ -195,7 +198,7 @@ def sweep_bwd_torch(
         if ert:
             go = go & (tmax >= early_stop_eps)
         mat_a, mat_b = _interp_matrices(
-            ay[k], by[k], ax[k], bx[k], n_v, n_y, n_x, n_u, dtype
+            ay[k], by[k], ax[k], bx[k], n_v, n_y, n_x, n_u, dtype, row0
         )
         smp = resample(sl, mat_a, mat_b, precision)
         sig_raw = smp[0]

@@ -7,13 +7,22 @@ and camera geometry (coeffs, dt) and the occupancy enables get none. With
 ``impl='cuda'`` both directions are the CUDA kernels; with ``impl='torch'``
 both are the plain twins, which run wherever their tensors are. A view
 batch (``views`` > 1) goes to the same kernels over all its views in one
-launch each way, or to the view-batched twins.
+launch each way, or to the view-batched twins. On a mesh of ranks each
+sweeping its own rays, the op can return the gradient summed over the
+ranks: slab by slab in stream order (``mesh``), or through the ring
+backward (``ring``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpuvr_torch.dist.init import all_reduce
+from tpuvr_torch.kernels.ring_bwd import (
+    check_ring_size,
+    sweep_bwd_ring,
+    sweep_bwd_ring_torch,
+)
 from tpuvr_torch.kernels.sweep import sweep_fwd
 from tpuvr_torch.kernels.sweep_bwd import sweep_bwd
 from tpuvr_torch.kernels.sweep_torch import (
@@ -41,7 +50,8 @@ class _Sweep(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, grid_sc, ay, by, ax, bx, enables, dt_map, spec):
-        fwd, bwd, kw, bwd_chunks = spec
+        fwd = spec[0]
+        kw = spec[2]
         rgb, trans = fwd(grid_sc, (ay, by, ax, bx), enables, dt_map, **kw)
         ctx.save_for_backward(grid_sc, ay, by, ax, bx, enables, dt_map,
                               rgb, trans)
@@ -52,13 +62,17 @@ class _Sweep(torch.autograd.Function):
     def backward(ctx, d_rgb, d_trans):
         grid_sc, ay, by, ax, bx, enables, dt_map, rgb, trans = (
             ctx.saved_tensors)
-        _, bwd, kw, bwd_chunks = ctx.spec
+        _, bwd, kw, bwd_chunks, mesh, ring = ctx.spec
         dgrid = None
         if ctx.needs_input_grad[0]:
             args = (grid_sc, (ay, by, ax, bx), enables, dt_map, rgb, trans,
                     d_rgb.contiguous(), d_trans.contiguous())
-            if bwd_chunks > 1:
-                dgrid = _chunked_bwd(bwd, bwd_chunks, *args, kw)
+            if ring is not None:
+                ring_fn, r_mesh, r_size, r_chunks = ring
+                dgrid = ring_fn(*args, mesh=r_mesh, ring_size=r_size,
+                                ring_chunks=r_chunks, **kw)
+            elif bwd_chunks > 1 or mesh is not None:
+                dgrid = _chunked_bwd(bwd, bwd_chunks, *args, kw, mesh)
             else:
                 dgrid = bwd(*args, **kw)
         return dgrid, None, None, None, None, None, None, None
@@ -74,7 +88,9 @@ def sweep_op(
     views: int = 1,
     bwd_chunks: int = 1,
     softplus: bool = False,
+    mesh=None,
     ring: tuple | None = None,
+    row0: int = 0,
 ):
     """Differentiable sweep: (grid_sc, coeffs, enables, dt_map) ->
     (rgb (3, V, U), T (V, U)).
@@ -87,10 +103,29 @@ def sweep_op(
     ``views`` > 1: the operands are a view batch, as the JAX package's
     (coeffs and enables (views, S), ray planes stacked along V), marched
     in one call each way; the gradient is the sum over the views.
+    ``row0``: the ray planes are rows [row0, row0 + V) of each view's
+    image, each sampled where the whole image's row is (a rank's row
+    tile; see :func:`~tpuvr_torch.kernels.sweep.sweep_fwd`).
+
+    ``mesh`` (a :class:`~tpuvr_torch.dist.init.DataMesh`; the JAX
+    package's ``axis_name``): every rank sweeps its own rays, and the
+    gradient comes out summed over the ranks, each of the ``bwd_chunks``
+    slabs all-reduced as it comes out, in stream order (the next slab's
+    backward waits for it). The caller must not reduce it again.
+    ``ring = (mesh, size, chunks)``: the ring backward instead
+    (:mod:`tpuvr_torch.kernels.ring_bwd`, B11's port), ``chunks`` slabs
+    whose all-reduces overlap the next slab's backward; ``size`` (>= 2)
+    is the mesh's rank count. Exclusive of ``bwd_chunks`` and ``mesh``,
+    as in the JAX package.
     """
     if ring is not None:
-        raise NotImplementedError("the ring backward lands with the "
-                                  "multi-GPU slice of the port (B11)")
+        if bwd_chunks > 1 or mesh is not None:
+            raise ValueError("ring is mutually exclusive with "
+                             "bwd_chunks/mesh")
+        r_mesh, r_size, r_chunks = ring
+        check_ring_size(r_size, r_mesh)
+        ring = ((sweep_bwd_ring if impl == "cuda" else sweep_bwd_ring_torch),
+                r_mesh, int(r_size), int(r_chunks))
     if impl == "cuda":
         fwd, bwd = sweep_fwd, sweep_bwd
     elif impl == "torch" and views > 1:
@@ -101,10 +136,10 @@ def sweep_op(
         raise ValueError(f"unknown sweep impl: {impl!r}")
     kw = dict(reverse=reverse, sigma_scale=sigma_scale,
               early_stop_eps=early_stop_eps, precision=precision,
-              softplus=softplus)
+              softplus=softplus, row0=int(row0))
     if views > 1:
         kw["views"] = int(views)
-    spec = (fwd, bwd, kw, int(bwd_chunks))
+    spec = (fwd, bwd, kw, int(bwd_chunks), mesh, ring)
 
     def op(grid_sc, coeffs, enables, dt_map):
         return _Sweep.apply(grid_sc, *coeffs, enables, dt_map, spec)
@@ -113,12 +148,13 @@ def sweep_op(
 
 
 def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
-                 trans, d_rgb, d_trans, kw):
+                 trans, d_rgb, d_trans, kw, mesh=None):
     """Slab-chunked backward: chunks follow traversal order (chunk 0 holds
     the first slices the rays hit), so the (trans, q) carry threads
     forward; the slabs are put back in grid order for ``reverse``. The
     traversal range is cut on the last dim of the coefficients and
-    enables, so (S,) and a view batch's (views, S) both work."""
+    enables, so (S,) and a view batch's (views, S) both work. With a
+    ``mesh`` each slab's gradient is all-reduced as it comes out."""
     s = grid_sc.shape[0]
     if s % n_chunks:
         raise ValueError(f"bwd_chunks {n_chunks} must divide slices {s}")
@@ -137,6 +173,9 @@ def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
             enables[..., tr], dt_map, rgb, trans, d_rgb, d_trans,
             carry=carry, **kw,
         )
+        if mesh is not None:
+            grad_g = grad_g.contiguous()
+            all_reduce(grad_g, mesh)
         parts.append(grad_g)
     if kw["reverse"]:
         parts = parts[::-1]

@@ -1,7 +1,8 @@
 """Inverse rendering: recover a voxel grid from posed views.
 
 ``fit_grid`` runs Adam on the grid against the L2 image loss of posed
-views, on one device:
+views, on one device or, with a mesh of ranks (one process per card,
+``tpuvr_torch.dist``), with every view's rays row-sharded over the ranks:
 
 - views are grouped by their sweep signature (axis, reverse) and the JAX
   package's banded tile class, as that package groups them; the per-view
@@ -26,14 +27,25 @@ views, on one device:
 The minibatch draws follow the JAX package's ``fit_grid`` exactly (the
 same groups, numpy generator and calls), so the two trainers see the same
 views. Checkpoints (``tpuvr_torch.train.ckpt``) and metrics JSONL go to
-the run directory. Multi-device training (a mesh) is a later slice of the
-port and raises here.
+the run directory.
+
+On a mesh (``fit_grid(mesh=data_mesh())``, the JAX package's ``'data'``
+mesh) every rank holds the whole grid and the same training state, sweeps
+its row tile of every view of the minibatch, and the tiles are gathered so
+that every rank warps the whole images and takes the same loss. Each rank
+then backpropagates the loss through its own rows only, and the grid
+gradient is summed over the ranks once: after the backward in
+``grad_buckets`` all-reduces, slab by slab in stream order
+(``bwd_chunks``), or through the ring backward (``grad_ring``, B11's
+port). A mesh with a ``"z"`` axis (the z-sharded grid) is not ported yet
+and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from typing import Dict, List, Optional, Tuple
@@ -43,6 +55,7 @@ import torch
 
 from tpuvr_torch.config import RenderConfig, TrainConfig
 from tpuvr_torch.device import resolve_device
+from tpuvr_torch.dist.init import bucketed_all_reduce, broadcast, gather_tiles
 from tpuvr_torch.ops.geometry import (
     view_geometry,
     warp_to_pixels_band,
@@ -72,6 +85,8 @@ log = logging.getLogger("tpuvr_torch")
 
 _SOFTPLUS_INV_001 = float(np.log(np.expm1(0.01)))  # raw init -> sigma 0.01
 _TILE = 128  # the JAX package's banded tile edge (band_tiles)
+_Z_MESH = ("a mesh with a 'z' axis (the z-sharded grid) is not ported yet; "
+           "use a 'data' mesh (tpuvr_torch.dist.data_mesh)")
 
 
 def params_to_grid(params, density_softplus: bool):
@@ -161,17 +176,19 @@ def band_tiles(band, n_v, n_u, n_y, n_x):
     return tile_v, tile_u
 
 
-def group_views(cams, grid_shape, rays_per_view: Optional[int] = None):
+def group_views(cams, grid_shape, rays_per_view: Optional[int] = None,
+                n_shards: int = 1):
     """Group cameras by sweep signature and stack their geometry (on the
     host).
 
     Returns {(axis, reverse, tiles): (view_indices, stacked_geom, band,
     warp)} with ``band`` the group's (max |ay|, max |ax|, min |ay|,
     min |ax|). ``tiles`` is the JAX package's per-view banded tile class of
-    the rows a step sweeps (the ``rays_per_view`` band, else every row), ()
-    for its dense class: the port's kernels have no tiles, but keying on the
-    class as the JAX package does gives both trainers the same groups, hence
-    the same minibatches.
+    the rows a step sweeps on one rank (the ``rays_per_view`` band, else
+    every row, divided over ``n_shards`` row shards), () for its dense
+    class: the port's kernels have no tiles, but keying on the class as the
+    JAX package does gives both trainers the same groups, hence the same
+    minibatches.
 
     ``warp`` is the group's :class:`~tpuvr_torch.ops.warp.RowWarpPlan` when
     ``TPUVR_WARP=rows`` and the planner finds one; the per-view window
@@ -184,9 +201,9 @@ def group_views(cams, grid_shape, rays_per_view: Optional[int] = None):
         axis, reverse, geom, band = view_geometry(cam, grid_shape)
         n_v, n_u = geom["dt"].shape
         dims_p = [grid_shape[d] for d in GRID_PERM[axis][:3]]
-        rows = band_rows(rays_per_view, n_v, n_u)
-        tiles = band_tiles(band, rows if rows is not None else n_v, n_u,
-                           dims_p[1], dims_p[2])
+        rows = band_rows(rays_per_view, n_v, n_u, n_shards)
+        v_swept = max((rows if rows is not None else n_v) // n_shards, 1)
+        tiles = band_tiles(band, v_swept, n_u, dims_p[1], dims_p[2])
         idxs, geoms, bands = groups.setdefault((axis, reverse, tiles or ()),
                                                ([], [], []))
         idxs.append(i)
@@ -223,14 +240,16 @@ def view_batch_eligible(k_views: int) -> bool:
     return os.environ.get("TPUVR_VIEW_BATCH", "1") != "0"
 
 
-def band_rows(rays_per_view: Optional[int], n_v: int,
-              n_u: int) -> Optional[int]:
+def band_rows(rays_per_view: Optional[int], n_v: int, n_u: int,
+              n_shards: int = 1) -> Optional[int]:
     """Row-band height for ``rays_per_view`` ray subsampling: about that
     many rays per view, rounded up to a multiple of 128 (8 when V is not a
-    multiple of 128); None means every row."""
+    multiple of 128), and of ``n_shards`` so the band splits over the row
+    shards; None means every row."""
     if rays_per_view is None:
         return None
     q = 128 if n_v % 128 == 0 else 8
+    q = q * n_shards // math.gcd(q, n_shards)
     rows = -(-rays_per_view // n_u)
     rows = min(n_v, -(-rows // q) * q)
     return None if rows >= n_v else rows
@@ -260,8 +279,13 @@ def make_train_step(
     lighting=None,
     view_batch: bool = False,
     warp_tiling=None,
+    mesh=None,
+    grad_buckets: int = 4,
+    bwd_chunks: int = 1,
+    grad_ring: bool = False,
 ):
-    """One train step for a view group (axis, reverse, ...), on one device.
+    """One train step for a view group (axis, reverse, ...), on one device
+    or, with a ``mesh``, on every rank of it.
 
     Returns ``step(params, opt_state, geom_all, targets_all, pick, r0s) ->
     (params, opt_state, loss)``: ``pick`` (n_views,) indexes the group's
@@ -283,8 +307,26 @@ def make_train_step(
     (4, V, U) image then goes through the row-block warp (its geometry
     holds ``rwy``/``rwx``/``rwvb``), and the loss compares channels-first
     images. None (or with ``rows``) keeps the 4-tap gather.
+
+    ``mesh`` (a :class:`~tpuvr_torch.dist.init.DataMesh`): every rank
+    calls the step with the same arguments. Rank r sweeps rows
+    [r V/n, (r + 1) V/n) of every view of the minibatch (of the band, with
+    ``rows``), each ray sampled where the single-device step samples it
+    (the sweep op's ``row0``); the tiles are gathered, every rank warps the whole images
+    and takes the same loss, takes its gradient with respect to the
+    images, and backpropagates only its own rows into its sweep. The grid
+    gradient is then summed over the ranks: in ``grad_buckets``
+    all-reduces after the backward; with ``bwd_chunks`` > 1 slab by slab
+    inside the sweep's backward, in stream order; with ``grad_ring``
+    through the ring backward over ``bwd_chunks`` slabs (at least 1), each
+    slab's all-reduce overlapping the next slab's backward. Every rank
+    returns the same loss and applies the same summed gradient.
     """
     axis, reverse = key[0], key[1]
+    if mesh is not None and mesh.shape.get("z", 1) > 1:
+        raise NotImplementedError(_Z_MESH)
+    ringed = mesh is not None and grad_ring
+    chunked = mesh is not None and bwd_chunks > 1 and not ringed
     lit = lighting is not None and lighting.mode != "none"
     if kernel_softplus and (lit or not density_softplus):
         raise ValueError("the fused mode (kernel_softplus) needs softplus "
@@ -342,30 +384,85 @@ def make_train_step(
         return [inter_image(r, t) for r, t in zip(rgb.split(v_pv, dim=1),
                                                   trans.split(v_pv))]
 
+    def images_loss(inters, geom, targets, r0s, row_op):
+        """The mean over the views of each view's warped image MSE."""
+        total = 0.0
+        for i, inter in enumerate(inters):
+            geom_i = {k: v[i] for k, v in geom.items()}
+            total = total + warp_loss(inter, geom_i, targets[i], r0s[i],
+                                      row_op)
+        return total / n_views
+
+    def row_tile(geom):
+        """This rank's rows [r V/n, (r + 1) V/n) of every view: (first row,
+        row count)."""
+        n_v = geom["dt"].shape[1]
+        if n_v % mesh.world:
+            raise ValueError(f"intermediate rows {n_v} not divisible by "
+                             f"mesh size {mesh.world}")
+        v_l = n_v // mesh.world
+        return mesh.rank * v_l, v_l
+
+    def tiles_of_rows(op, grid_sc, enables, geom, r_lo, v_l):
+        """This rank's (n_views, 4, V / n, U) row tiles of the views'
+        intermediate images, swept by an op made with ``row0=r_lo`` so that
+        each ray samples where the whole image's does."""
+        c = geom["coeffs"]  # (n_views, 4, S)
+        en = enables[None, :] * geom["valid"]
+        dt = geom["dt"][:, r_lo:r_lo + v_l]
+        if not view_batch:
+            return torch.stack([
+                torch.cat([rgb, trans[None]], dim=0) for rgb, trans in (
+                    op(grid_sc, tuple(c[i]), en[i], dt[i])
+                    for i in range(n_views))])
+        rgb, trans = op(grid_sc, tuple(c.unbind(1)), en, dt.flatten(0, 1))
+        tiles = torch.cat([rgb, trans[None]], dim=0)
+        return tiles.reshape(4, n_views, v_l, -1).transpose(0, 1)
+
+    def mesh_loss_and_grads(op, row_op, p, geom, targets, r0s, r_lo, v_l):
+        with torch.enable_grad():
+            grid_sc, enables = grid_and_enables(p)
+            tiles = tiles_of_rows(op, grid_sc, enables, geom, r_lo, v_l)
+        full = gather_tiles(tiles.detach(), mesh, 2).requires_grad_(True)
+        with torch.enable_grad():
+            inters = [x if row_plan is not None else x.permute(1, 2, 0)
+                      for x in full.unbind(0)]
+            loss = images_loss(inters, geom, targets, r0s, row_op)
+            (d_full,) = torch.autograd.grad(loss, full)
+            (grads,) = torch.autograd.grad(
+                tiles, p, d_full.narrow(2, r_lo, tiles.shape[2]))
+        if not (chunked or ringed):
+            bucketed_all_reduce(grads, mesh, grad_buckets)
+        return loss, grads
+
     def step(params, opt_state, geom_all, targets_all, pick, r0s):
-        op = sweep_op(reverse, render_cfg.sigma_scale,
-                      render_cfg.early_stop_eps, resolve_impl(impl, params),
-                      render_cfg.precision, softplus=kernel_softplus,
-                      views=n_views if view_batch else 1)
-        row_op = (None if row_plan is None else
-                  row_warp_op(row_plan.f_v, resolve_impl(impl, params)))
         pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
                                  device=params.device)
         geom = {k: v[pick_t] for k, v in geom_all.items()}
         targets = targets_all[pick_t]
         if rows is not None:
             geom = _slice_band(geom, r0s, rows)
+        r_lo, v_l = (0, None) if mesh is None else row_tile(geom)
+        op = sweep_op(reverse, render_cfg.sigma_scale,
+                      render_cfg.early_stop_eps, resolve_impl(impl, params),
+                      render_cfg.precision, softplus=kernel_softplus,
+                      views=n_views if view_batch else 1,
+                      bwd_chunks=bwd_chunks if chunked else 1,
+                      mesh=mesh if chunked else None,
+                      ring=((mesh, mesh.world, max(bwd_chunks, 1))
+                            if ringed else None), row0=r_lo)
+        row_op = (None if row_plan is None else
+                  row_warp_op(row_plan.f_v, resolve_impl(impl, params)))
         p = params.detach().requires_grad_(True)
-        with torch.enable_grad():
-            grid_sc, enables = grid_and_enables(p)
-            total = 0.0
-            for i, inter in enumerate(view_inters(op, grid_sc, enables,
-                                                  geom)):
-                geom_i = {k: v[i] for k, v in geom.items()}
-                total = total + warp_loss(inter, geom_i, targets[i], r0s[i],
-                                          row_op)
-            loss = total / n_views
-            (grads,) = torch.autograd.grad(loss, p)
+        if mesh is not None:
+            loss, grads = mesh_loss_and_grads(op, row_op, p, geom, targets,
+                                              r0s, r_lo, v_l)
+        else:
+            with torch.enable_grad():
+                grid_sc, enables = grid_and_enables(p)
+                loss = images_loss(view_inters(op, grid_sc, enables, geom),
+                                   geom, targets, r0s, row_op)
+                (grads,) = torch.autograd.grad(loss, p)
         updates, opt_state = opt.update(grads, opt_state)
         return params + updates, opt_state, loss.detach()
 
@@ -403,6 +500,8 @@ def fit_grid(
     impl: Optional[str] = None,
     run_dir: Optional[str] = None,
     resume: bool = False,
+    grad_buckets: int = 4,
+    bwd_chunks: int = 1,
     grad_ring: bool = False,
     lighting=None,
     params_init=None,
@@ -417,9 +516,21 @@ def fit_grid(
       cams: list of N cameras.
       grid_shape: (Z, Y, X, 4) of the grid to recover.
       cfg/render_cfg: training and renderer configs.
-      mesh, grad_ring: multi-GPU options of the JAX package; either
-        raises NotImplementedError (so does its ``bwd_chunks``, which
-        takes effect only on a mesh there and is not accepted here).
+      mesh: optional :class:`~tpuvr_torch.dist.init.DataMesh`
+        (``tpuvr_torch.dist.data_mesh()``): ray data parallelism over its
+        ranks, each of which calls ``fit_grid`` with the same arguments.
+        The ranks start from rank 0's parameters; rank 0 alone writes
+        metrics and checkpoints, and every rank reads a checkpoint on
+        ``resume``. A mesh with a ``"z"`` axis > 1 raises
+        NotImplementedError.
+      grad_buckets: MeshConfig.grad_buckets, the all-reduces the grid
+        gradient is cut into after the backward.
+      bwd_chunks: MeshConfig.bwd_chunks: > 1 cuts the backward into slabs
+        and all-reduces each in stream order as it comes out.
+      grad_ring: MeshConfig.grad_ring: the ring backward (B11's port),
+        each slab's all-reduce overlapping the next slab's backward;
+        ``bwd_chunks`` is its slab count. ``grad_ring`` and
+        ``bwd_chunks`` > 1 need a mesh (ValueError without one).
       impl: sweep implementation, None for the device's ('cuda' on the
         card, 'torch' on the CPU); 'torch' on the card runs the plain
         twins, for comparison only.
@@ -441,16 +552,18 @@ def fit_grid(
       (grid (rendered space), params, history) with ``history["loss"]``
       per step and ``history["step_ms"]``, the time from the end of one
       step to the end of the next (CUDA events on the card; the first
-      entry runs from the start of the loop).
+      entry runs from the start of the loop). On a mesh every rank
+      returns the same.
     """
-    if mesh is not None or grad_ring:
-        raise NotImplementedError(
-            "multi-GPU training (a mesh, and grad_ring/bwd_chunks on it) "
-            "lands with the port's distributed slice (tpuvr_torch/dist/, "
-            "B11)")
+    if mesh is not None and mesh.shape.get("z", 1) > 1:
+        raise NotImplementedError(_Z_MESH)
+    if mesh is None and (grad_ring or bwd_chunks > 1):
+        raise ValueError("grad_ring and bwd_chunks > 1 reduce the gradient "
+                         "over a mesh; pass mesh=")
     dev = resolve_device(device)
     run_dir = run_dir or cfg.ckpt_dir
-    metrics = MetricsLogger(run_dir)
+    main_rank = mesh is None or mesh.rank == 0
+    metrics = MetricsLogger(run_dir if main_rank else None)
     opt = opt if opt is not None else Adam(cfg.lr)
     if params_init is not None:
         params = torch.as_tensor(params_init, dtype=torch.float32).to(
@@ -470,10 +583,12 @@ def fit_grid(
 
     # Geometry is built on the host, then each group's stacked tensors
     # move to the device once.
+    n_shards = 1 if mesh is None else mesh.world
     groups = {
         k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band, plan)
         for k, (idxs, stacked, band, plan) in group_views(
-            cams, grid_shape, rays_per_view=cfg.rays_per_view).items()
+            cams, grid_shape, rays_per_view=cfg.rays_per_view,
+            n_shards=n_shards).items()
     }
     group_keys = sorted(groups)
     lit = lighting is not None and lighting.mode != "none"
@@ -486,13 +601,18 @@ def fit_grid(
     for key in group_keys:
         idxs, stacked, _, plan = groups[key]
         n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
-        rows = band_rows(cfg.rays_per_view, n_v, n_u)
+        rows = band_rows(cfg.rays_per_view, n_v, n_u, n_shards)
         rows_by_key[key] = (rows, n_v)
+        if (rows or n_v) % n_shards:
+            raise ValueError(f"group {key}: intermediate rows {rows or n_v} "
+                             f"not divisible by mesh size {n_shards}")
         k_views = min(cfg.views_per_batch, len(idxs))
         steps_fns[key] = make_train_step(
             key, k_views, opt, render_cfg, cfg.density_softplus, impl,
             rows=rows, kernel_softplus=fused, lighting=lighting,
             view_batch=view_batch_eligible(k_views), warp_tiling=plan,
+            mesh=mesh, grad_buckets=grad_buckets, bwd_chunks=bwd_chunks,
+            grad_ring=grad_ring,
         )
     targets = _as_tensor(targets)
     targets_by_key = {
@@ -500,6 +620,8 @@ def fit_grid(
             dev) for k in group_keys
     }
 
+    if mesh is not None:
+        broadcast(params, mesh)  # every rank starts from rank 0's state
     rng = np.random.default_rng(cfg.seed + start_step)
     history = {"loss": [], "step_ms": []}
     pending = None  # (step numbers, key, device losses) awaiting readback
@@ -570,8 +692,9 @@ def fit_grid(
             drain(pending)
         pending = (list(range(step_no, step_no + n_done)), key, losses)
         next_step = step_no + n_done
-        if ckpt is not None and (next_step % cfg.ckpt_every < n_done
-                                 or next_step >= cfg.steps):
+        if ckpt is not None and main_rank and (
+                next_step % cfg.ckpt_every < n_done
+                or next_step >= cfg.steps):
             p_c, o_c = (_relayout(params, opt_state, cur_layout, None)
                         if fused else (params, opt_state))
             ckpt.save(next_step - 1, {"params": p_c, "opt_state": o_c},
