@@ -14,8 +14,9 @@ Phases, in order; any failure raises and exits non-zero:
      c4 minibatch, 8 views of one c4 group, also against the same kernels
      run view by view), the row-block warp pair (K7, K8) at the c4 row plans
      against its plain versions and grid_sample (K8 also against itself over
-     two calls), and the whole render path against device="cpu" on a small
-     input;
+     two calls; each timed with CUDA events in turns with its grid_sample
+     call, by the profiler, and by the host's issue time), and the whole
+     render path against device="cpu" on a small input;
   3. the render path at full size through the entry points (device=None):
      c1, c2 and the 256^3 @ 512^2 headline frame as frame loops, and c3 lit
      (16-direction light bake, then frames), timed with CUDA events;
@@ -46,7 +47,8 @@ Phases, in order; any failure raises and exits non-zero:
 Without a card it exits non-zero before printing any result.
 
 ``--phase dist`` runs the build and phase 5 alone (for a machine with
-four cards).
+four cards); ``--phase warp`` runs the build and the row warp's kernel
+checks and times (K7, K8 at c4's row plans) alone.
 """
 
 from __future__ import annotations
@@ -108,6 +110,16 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def interleaved_ms(fns, reps, rounds=5):
+    """{name: median over ``rounds`` of cuda_ms(fn, reps)}, the functions
+    taken in turn in every round."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(fn, reps))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
 def device_ms(fn, reps, n_top=3):
     """Device time per call from torch.profiler (the device-side kernel
     and memcpy events over ``reps`` calls; the host ops that launched them
@@ -135,6 +147,19 @@ def device_ms(fn, reps, n_top=3):
         return None, [], ops / reps
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
     return sum(per.values()), top, ops / reps
+
+
+def host_us(fn, reps):
+    """Mean host microseconds to issue one call (no synchronisation between
+    calls; the card's queue absorbs them), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check(cond, msg):
@@ -640,7 +665,9 @@ def warp_kernels(dev):
     255); K8 against its plain version (1e-5 of max|grad|), against
     grid_sample's input gradient (1e-4 of max|grad|), and bit for bit over
     two calls. Times the kernels, their plain versions and grid_sample each
-    way (the library yardstick). Returns the numbers for the summary."""
+    way (the library yardstick): CUDA events, the profiler's device time
+    (with its split by CUDA kernel) and the host's time to issue one call.
+    Returns the numbers for the summary."""
     from tpuvr_torch.kernels import warp as kwarp
     from tpuvr_torch.kernels.warp_torch import (
         warp_rows_bwd_torch,
@@ -715,22 +742,39 @@ def warp_kernels(dev):
         # tiles and the (4, V, U) image (or their cotangent and gradient).
         pos_b = 2 * n_tiles * p * 4 + n_tiles * 4
         tile_b, image_b = 4 * n_tiles * p * 4, 4 * n_v * n_u * 4
+
+        def k7_call():
+            return kwarp.warp_rows_fwd(inter, y, x, vb, f_v=f_v)
+
+        def k8_call():
+            return kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+
+        # Each kernel and its library call are timed in turns, 5 rounds of
+        # 50 calls, and the median round kept: at a few microseconds a call
+        # the events read the host's issue rate, which drifts within a run.
         c.update(
-            fwd_ms=cuda_ms(lambda: kwarp.warp_rows_fwd(inter, y, x, vb,
-                                                       f_v=f_v), 50),
-            bwd_ms=cuda_ms(lambda: kwarp.warp_rows_bwd(
-                d_out, y, x, vb, n_v, n_u, f_v=f_v), 20),
+            **interleaved_ms({"fwd_ms": k7_call, "fwd_library_ms": gs_fwd,
+                              "bwd_ms": k8_call, "bwd_library_ms": gs_bwd},
+                             50),
             fwd_plain_ms=cuda_ms(lambda: warp_rows_fwd_torch(
                 inter, y, x, vb, f_v=f_v), 3),
             bwd_plain_ms=cuda_ms(lambda: warp_rows_bwd_torch(
                 d_out, y, x, vb, n_v, n_u, f_v=f_v), 3),
-            fwd_library_ms=cuda_ms(gs_fwd, 50),
-            bwd_library_ms=cuda_ms(gs_bwd, 50),
             bytes_ms=(pos_b + tile_b + image_b) / HBM_BYTES_PER_S * 1e3,
             ops_ms=(WARP_FLOPS_PER_SAMPLE * 4 * n_tiles * p
                     / F32_FLOP_PER_S * 1e3))
+        # Device time (profiler) beside the event times above, which on a
+        # call of a few microseconds may measure the host's issue instead;
+        # and the host's own time to issue one call.
+        for name, fn in (("fwd", k7_call), ("bwd", k8_call),
+                         ("fwd_library", gs_fwd), ("bwd_library", gs_bwd)):
+            c[f"{name}_device_ms"], top, _ = device_ms(fn, 20)
+            c[f"{name}_host_us"] = host_us(fn, 200)
+            log(f"[kernel] warp_rows c4 axis {key[0]} {name} device time by "
+                "kernel: " + "; ".join(f"{k} {v:.4f} ms" for k, v in top))
         log(f"[kernel] warp_rows c4 axis {key[0]}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in c.items() if k.endswith("_ms")))
+            f"{k} {v:.4f}" if v is not None else f"{k} not measured"
+            for k, v in c.items() if k.endswith(("_ms", "_us"))))
         out["cases"][f"axis{key[0]}"] = c
         del inter, d_out, pos, k7, p7, k8, k8b, p8
     cases = out["cases"].values()
@@ -1241,14 +1285,14 @@ def dist_phase(steps=3):
         check(loss[-1] < loss[0], f"dist {mode}: the loss did not fall")
         slabs = kw.get("bwd_chunks", 1)
         # Per step: K5 once, K6 once a slab, the ring once in ring mode;
-        # all-reduces: the tiles' gather and one a bucket or slab. One
-        # broadcast of the starting parameters.
+        # all-reduces: the tiles' gather and one a bucket or slab. Two
+        # broadcasts: rank 0's start step and its starting parameters.
         want = {"sweep_fwd_views": steps, "sweep_bwd_views": slabs * steps,
                 "sweep_bwd_ring": steps if kw.get("grad_ring") else 0,
                 "sweep_fwd": 0, "sweep_bwd": 0,
                 "collective_all_reduce": (1 + max(slabs, kw.get(
                     "grad_buckets", 1))) * steps,
-                "collective_broadcast": 1}
+                "collective_broadcast": 2}
         for f in fits:
             got = {k: f["launches"].get(k, 0) for k in want}
             check(got == want, f"dist {mode} rank launches {got}, expected "
@@ -1368,9 +1412,11 @@ def finish(t_start):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "dist"), default="all",
+    parser.add_argument("--phase", choices=("all", "dist", "warp"),
+                        default="all",
                         help="'dist': build, then the data-parallel path "
-                             "alone")
+                             "alone; 'warp': build, then the row warp's "
+                             "kernels (K7, K8) alone")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1403,6 +1449,9 @@ def main(argv=None):
         dist, ring_entry, _ = dist_phase()
         log(json.dumps({"dist": dist}))
         log(json.dumps({"kernels": [ring_entry]}))
+        return finish(t_start)
+    if opts.phase == "warp":
+        log(json.dumps({"warp": warp_kernels(dev)}))
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
@@ -1765,16 +1814,20 @@ def main(argv=None):
                     c["bwd_bit_identical"] for c in wk["cases"].values())}
                if d == "bwd" else {}),
             "ms": w1[f"{d}_ms"],
+            "device_ms": w1[f"{d}_device_ms"],
+            "host_us": w1[f"{d}_host_us"],
             "plain_ms": w1[f"{d}_plain_ms"],
             **bound(w1["bytes_ms"], w1["ops_ms"]),
             "library_ms": w1[f"{d}_library_ms"],
+            "library_device_ms": w1[f"{d}_library_device_ms"],
+            "library_host_us": w1[f"{d}_library_host_us"],
             "library_call": ("grid_sample (bilinear, border, align_corners)"
                              if d == "fwd" else
                              "aten.grid_sampler_2d_backward, input gradient"),
             "shape": f"one c4 view, axis 1: {w1['plan']}, lattice "
                      f"{w1['lattice']}",
             "by_plan": {a: {k: v for k, v in c.items()
-                            if k.endswith("_ms") or k == "plan"}
+                            if k.endswith(("_ms", "_us")) or k == "plan"}
                         for a, c in wk["cases"].items()},
         })
     kernels.append(ring_entry)

@@ -391,6 +391,40 @@ def test_sweep_bwd_ring_matches_k6_and_one_all_reduce(card):
     np.testing.assert_array_equal(out[1]["ring"][0], out[0]["ring"][0])
 
 
+def test_sweep_bwd_ring_with_ert_and_softplus_matches_k6(card):
+    """The ring backward at early_stop_eps 1e-2 (on a denser grid, where
+    rays stop), with softplus, and with both, on 2 gloo ranks sharing the
+    card: against K6 in one call then one all-reduce, 1e-5 of max|grad|.
+    K6 stops each ray on its own, and the slabs thread each ray's (T, q)
+    carry, so early termination changes nothing between the two."""
+    from tpuvr_torch.dist import launch, workers
+
+    reverse, args = _views_args(card, 1)
+    grid_sc, coeffs, en, dt = args
+    grid_sc = grid_sc.clone()
+    grid_sc[:, 0] += 0.6
+    base = dict(grid_sc=grid_sc.cpu().numpy(),
+                coeffs=tuple(c.cpu().numpy() for c in coeffs),
+                enables=en.cpu().numpy(), dt=dt.cpu().numpy(), views=4,
+                reverse=reverse, ring_chunks=2, seed=8)
+    kws = {"ert": dict(eps=1e-2), "softplus": dict(softplus=True),
+           "ert_softplus": dict(eps=1e-2, softplus=True)}
+    out = launch.spawn(workers.run_suite, 2, "gloo", "cuda", ([
+        (tag, workers.ring_case, dict(base, **kw), {})
+        for tag, kw in kws.items()], "cuda"), timeout_s=300)
+    rgb, t = ksweep.sweep_fwd(grid_sc, coeffs, en, dt, reverse=reverse,
+                              views=4)
+    assert int((t < 1e-2).sum()) > 0
+    for tag in kws:
+        for rank in range(2):
+            got, ref, counts = out[rank][tag]
+            scale = float(np.abs(ref).max())
+            assert scale > 0
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale)
+            assert counts == {"k6": 2, "ring": 1, "all_reduce": 2}
+        np.testing.assert_array_equal(out[1][tag][0], out[0][tag][0])
+
+
 def test_sweep_views_kernel_ert_matches_k1_loop(card):
     """eps > 0 where rays terminate: over a view batch the kernels stop
     each ray where they stop it view by view, so the batch equals the
@@ -557,3 +591,69 @@ def test_gradients_flow_through_the_row_warp(card, row_cases):
                             {"warp_rows_fwd": 1, "warp_rows_bwd": 1})
     torch.testing.assert_close(grads["cuda"], grads["torch"], rtol=0,
                                atol=1e-5 * float(grads["torch"].abs().max()))
+
+
+def _k8_edge_case(name):
+    """(f_v, y_t, x_t, vb, V, U) of one of the transpose's edge cases, as
+    numpy: lattice points (the last row and column included), every pixel
+    of a tile in one cell (the fullest cell), P not a multiple of the
+    kernel's 1024-pixel staging batch, a window as tall as the lattice,
+    and tiles whose columns span exactly one 32-column slab boundary."""
+    rng = np.random.default_rng(12)
+    n_v, n_u, n_tiles, p, f_v = 40, 70, 5, 1100, 24
+    vb = np.array([0, 8, 16, 13, 3])
+    if name == "lattice_points":
+        y = rng.integers(0, n_v, (n_tiles, p)).astype(np.float64)
+        x = rng.integers(0, n_u, (n_tiles, p)).astype(np.float64)
+        y[:, :5], x[:, :5] = n_v - 1, n_u - 1
+        f_v, vb = n_v, np.zeros(n_tiles)
+    elif name == "one_cell":
+        y, x = np.full((2, 777), 17.25), np.full((2, 777), 33.5)
+        vb = np.array([8, 8])
+    elif name == "ragged_batch":
+        y = np.clip(vb[:, None] + rng.uniform(0, 20, (n_tiles, p)), 0,
+                    n_v - 1)
+        x = np.clip(rng.uniform(0, 40, (n_tiles, 1))
+                    + rng.uniform(0, 28, (n_tiles, p)), 0, n_u - 1)
+    elif name == "window_is_lattice":
+        n_v, n_u, f_v = 16, 64, 16
+        y = rng.uniform(0, 15, (3, 200))
+        x = rng.uniform(0, 63, (3, 200))
+        vb = np.zeros(3)
+    else:  # "slab_boundary"
+        n_u = 96
+        y = rng.uniform(5, 20, (3, 1030))
+        x = rng.uniform(30.0, 33.99, (3, 1030))
+        vb = np.zeros(3)
+    return (f_v, y.astype(np.float32), x.astype(np.float32),
+            vb.astype(np.int32), n_v, n_u)
+
+
+@pytest.mark.parametrize("name", ["lattice_points", "one_cell",
+                                  "ragged_batch", "window_is_lattice",
+                                  "slab_boundary"])
+def test_warp_rows_bwd_kernel_edge_cases(card, name):
+    """K8 against its plain version (1e-5 of max|grad|: f32 sums of one
+    cell's terms in another order) and bit for bit over two calls, and K7
+    against its plain version (1e-6), on the transpose's edge cases."""
+    from tpuvr_torch.kernels import warp as kwarp
+    from tpuvr_torch.kernels.warp_torch import (
+        warp_rows_bwd_torch,
+        warp_rows_fwd_torch,
+    )
+
+    f_v, *arrays, n_v, n_u = _k8_edge_case(name)
+    y, x, vb = (torch.as_tensor(a).to(card) for a in arrays)
+    gen = torch.Generator(device=card).manual_seed(13)
+    d_out = torch.randn((4, *y.shape), generator=gen, device=card)
+    inter = torch.rand((4, n_v, n_u), generator=gen, device=card)
+    k8 = kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+    p8 = warp_rows_bwd_torch(d_out, y, x, vb, n_v, n_u, f_v=f_v)
+    scale = float(p8.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(k8, p8, rtol=0, atol=1e-5 * scale)
+    assert torch.equal(k8, kwarp.warp_rows_bwd(d_out, y, x, vb, n_v, n_u,
+                                               f_v=f_v))
+    torch.testing.assert_close(
+        kwarp.warp_rows_fwd(inter, y, x, vb, f_v=f_v),
+        warp_rows_fwd_torch(inter, y, x, vb, f_v=f_v), rtol=0, atol=1e-6)

@@ -20,6 +20,14 @@ Tolerances (f32):
   package shifts ``by`` by ``r0 * ay`` instead, which moves each position
   and tent weight by up to an ulp of the position: 2^-20 at 16 rows here,
   but 5.5e-5 of max|grad| over c4's 256 rows on the card);
+- at early_stop_eps > 0 (and with softplus): the ring against the
+  backward in one call then one all-reduce, 1e-5 of max|grad| (the slabs
+  thread the (T, q) carry, which holds the early-stop state, as one call
+  does); the mesh gradient against the single-process twin of each rank's
+  rows summed, 1e-5 of max|grad| plus the all-reduce's roundoff; against
+  the single-process twin of the whole image, the derived bound of
+  ``_ert_bound``: the twins stop at a per-slice maximum of T over the rows
+  they hold, so a rank stops its rows no later than the whole image does;
 - images 1e-5, as the single-process render tests; losses 1e-6
   relative, as the single-device trainer tests; loss trajectories over
   several steps rtol 2e-3 (the JAX package's own bound for a mesh
@@ -76,6 +84,10 @@ STEPS = [("gather", m) for m in STEP_MODES] + [
 FIT_MODES = {"plain": {}, "chunked": dict(bwd_chunks=2),
              "ring": dict(bwd_chunks=2, grad_ring=True)}
 FIT_CFG = dict(lr=3e-2, steps=4, views_per_batch=2, ckpt_every=0, seed=11)
+# The ring and the mesh gradient with early ray termination and softplus,
+# on a 2-view reverse batch whose density is raised so that rays stop.
+ERT = {"ert": dict(eps=0.1), "softplus": dict(softplus=True),
+       "ert_softplus": dict(eps=0.1, softplus=True)}
 
 
 def _tcam(jcam):
@@ -112,10 +124,11 @@ def _render_grid():
 
 
 def _sweep_inputs(views, reverse, seed=0, s=8, n_y=11, n_x=12, n_v=16,
-                  n_u=10):
+                  n_u=10, dense=False):
     """A random slab, geometry and cotangents as f32 numpy: coefficients
     and enables (S,) for one view, else (views, S); dt (views, V, U);
-    cotangents (3, views, V, U) and (views, V, U); one slice disabled."""
+    cotangents (3, views, V, U) and (views, V, U); one slice disabled.
+    ``dense`` adds 0.6 to the density, so that rays reach T < 0.1."""
     rng = np.random.default_rng(seed)
     f = np.float32
     lead = () if views == 1 else (views,)
@@ -124,8 +137,10 @@ def _sweep_inputs(views, reverse, seed=0, s=8, n_y=11, n_x=12, n_v=16,
                                   (-2.0, 3.0)))
     en = np.ones(lead + (s,), f)
     en[..., rng.integers(1, s - 1)] = 0.0
-    return dict(grid_sc=(rng.random((s, 4, n_y, n_x)) * 0.6).astype(f),
-                coeffs=coeffs, enables=en,
+    grid_sc = (rng.random((s, 4, n_y, n_x)) * 0.6).astype(f)
+    if dense:
+        grid_sc[:, 0] += 0.6
+    return dict(grid_sc=grid_sc, coeffs=coeffs, enables=en,
                 dt=rng.uniform(0.5, 1.5, (views, n_v, n_u)).astype(f),
                 d_rgb=rng.normal(size=(3, views, n_v, n_u)).astype(f),
                 d_t=rng.normal(size=(views, n_v, n_u)).astype(f),
@@ -211,6 +226,15 @@ def _cases(scenes, tmp):
         grid_sc=ring_in["grid_sc"], coeffs=ring_in["coeffs"],
         enables=ring_in["enables"], dt=ring_in["dt"].reshape(-1, 10),
         views=2, reverse=True, ring_chunks=2, seed=9), {}))
+    ring_dense = _sweep_inputs(2, True, seed=3, dense=True)
+    for tag, kw in ERT.items():
+        cases.append((f"ring_vs_one_call_{tag}", workers.ring_case, dict(
+            grid_sc=ring_dense["grid_sc"], coeffs=ring_dense["coeffs"],
+            enables=ring_dense["enables"],
+            dt=ring_dense["dt"].reshape(-1, 10), views=2, reverse=True,
+            ring_chunks=2, seed=9, **kw), {}))
+        cases.append((f"sweep_ring_{tag}", workers.sweep_grad_case, dict(
+            _sweep_inputs(2, True, dense=True), ring_chunks=2, **kw), {}))
     for warp, mode in STEPS:
         cases.append((f"step_{warp}_{mode}", workers.step_case,
                       dict(_step_inputs(scenes[warp], warp),
@@ -310,13 +334,13 @@ def _jax_mesh_grad(name):
     return np.asarray(out)
 
 
-def _port_rows_grad(inp, r0, r1, row0=False):
+def _port_rows_grad(inp, r0, r1, row0=False, eps=0.0, softplus=False):
     """The port's single-process gradient of rows [r0, r1) of every view,
     swept with ``by`` shifted by ``r0 * ay`` or, with ``row0``, at the
-    whole image's positions."""
+    whole image's positions; ``eps`` and ``softplus`` as the sweep op's."""
     ay, by, ax, bx = map(torch.as_tensor, inp["coeffs"])
-    op = tvjp.sweep_op(inp["reverse"], 1.0, 0.0, "torch", views=inp["views"],
-                       row0=r0 if row0 else 0)
+    op = tvjp.sweep_op(inp["reverse"], 1.0, eps, "torch", views=inp["views"],
+                       row0=r0 if row0 else 0, softplus=softplus)
     g = torch.as_tensor(inp["grid_sc"]).requires_grad_(True)
     by = by if row0 else by + r0 * ay
     rgb, t = op(g, (ay, by, ax, bx), torch.as_tensor(inp["enables"]),
@@ -363,6 +387,65 @@ def test_ring_backward_matches_one_call_and_one_all_reduce(ranks):
         _check_grad(got, ref)
         assert counts == {"k6": 0, "ring": 0, "all_reduce": 2}
         np.testing.assert_array_equal(got, ranks[0]["ring_vs_one_call"][0])
+
+
+def _ert_bound(inp, eps):
+    """How far a gradient whose rays stop earlier (at T < ``eps``) can lie
+    from one whose rays run on, per grid voxel. A stopped ray's later
+    samples had T_k < eps: their colour cotangent dC T_k (1 - att_k) is at
+    most |dC| eps, and every density cotangent of the ray moves by at most
+    sdt eps (2 sum_c |dC_c| max|c| + |dT|) (the skipped samples' own terms
+    and the suffix sum and T_fin that all earlier samples read); softplus
+    only scales the density's by sigmoid <= 1. A voxel of a slice gathers
+    those per-sample changes with tent weights that sum to at most
+    (1/ay + 1)(1/ax + 1) a view, ay, ax the sample spacings in voxels."""
+    ay, _, ax, _ = inp["coeffs"]
+    spread = inp["views"] * (1 / ay.min() + 1) * (1 / ax.min() + 1)
+    d_c, d_t = np.abs(inp["d_rgb"]).max(), np.abs(inp["d_t"]).max()
+    c_max = np.abs(inp["grid_sc"][:, 1:]).max()
+    per_sample = max(inp["dt"].max() * (2 * 3 * d_c * c_max + d_t), d_c)
+    return float(spread * eps * per_sample)
+
+
+@pytest.mark.parametrize("tag", sorted(ERT))
+def test_ring_backward_with_ert_and_softplus_matches_one_call(ranks, tag):
+    """The ring backward at eps > 0 and with softplus against the backward
+    in one call then one all-reduce: 1e-5 of max|grad| (the carry threads
+    the early-stop state through the slabs), the same on every rank (the
+    inputs are ``test_mesh_ring_grad_with_ert_and_softplus``'s density, at
+    which the ranks' rows stop)."""
+    for r in range(WORLD):
+        got, ref, counts = ranks[r][f"ring_vs_one_call_{tag}"]
+        _check_grad(got, ref)
+        assert counts == {"k6": 0, "ring": 0, "all_reduce": 2}
+        np.testing.assert_array_equal(
+            got, ranks[0][f"ring_vs_one_call_{tag}"][0])
+
+
+@pytest.mark.parametrize("tag", sorted(ERT))
+def test_mesh_ring_grad_with_ert_and_softplus(ranks, tag):
+    """The mesh gradient through the ring at eps > 0 and with softplus:
+    against the single-process twin of each rank's rows, summed, 1e-5 of
+    max|grad| plus the all-reduce's roundoff (each rank's rows stop at
+    their own per-slice maximum, in one process as on the mesh); against
+    the single-process twin of the whole image within ``_ert_bound``; and
+    at eps > 0 the ranks do stop rays the whole image keeps."""
+    kw = ERT[tag]
+    inp = _sweep_inputs(2, True, dense=True)
+    n_v = inp["dt"].shape[1]
+    v_l = n_v // WORLD
+    partials = [_port_rows_grad(inp, r * v_l, (r + 1) * v_l, row0=True, **kw)
+                for r in range(WORLD)]
+    by_rows = np.sum(partials, 0)
+    whole = _port_rows_grad(inp, 0, n_v, **kw)
+    bound = _ert_bound(inp, kw.get("eps", 0.0))
+    for r in range(WORLD):
+        got = ranks[r][f"sweep_ring_{tag}"]
+        _check_grad(got, by_rows, _reduce_roundoff(partials))
+        _check_grad(got, whole, bound)
+        np.testing.assert_array_equal(got, ranks[0][f"sweep_ring_{tag}"])
+    if "eps" in kw:
+        assert np.abs(by_rows - whole).max() > 1e-3 * np.abs(whole).max()
 
 
 _J_CAPTURE = optax.GradientTransformation(

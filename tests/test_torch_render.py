@@ -192,3 +192,59 @@ def test_unported_render_options_raise(cfg, err):
     with pytest.raises(err):
         trender.render_view(torch.zeros(4, 4, 4, 4),
                             tconfigs.front_ortho(4, 8), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("max_rows", [5, 7, 12])
+def test_row_chunked_render_is_the_whole_frame(max_rows):
+    """A frame rendered in row chunks (``max_rows_per_call`` below its 24
+    intermediate rows) is the unchunked frame bit for bit at eps 0: each
+    chunk sweeps with its first row as the op's ``row0``, so every row
+    samples where the whole image's does."""
+    grid = torch.as_tensor(np.array(smoke_sphere(N)))
+    cam = _port_cam(_cams()[1])
+    prep = trender.prepare_grid(grid, device="cpu")
+    whole = trender.render_prepared(prep, cam, RenderConfig(
+        early_stop_eps=0.0, max_rows_per_call=None), device="cpu")
+    chunked = trender.render_prepared(prep, cam, RenderConfig(
+        early_stop_eps=0.0, max_rows_per_call=max_rows), device="cpu")
+    for a, b in zip(chunked, whole):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("softplus", [False, True])
+@pytest.mark.parametrize("max_rows", [5, 8, 12])
+def test_row_chunked_gradient_is_the_whole_frames(max_rows, softplus):
+    """The grid gradient through row chunks at eps 0 is, bit for bit, the
+    sum in chunk order of the whole image's gradients with the cotangent
+    cut to each chunk's rows: the chunks sample and differentiate exactly
+    the whole image's rows (the twins' products over rows add exact zeros
+    for the rows outside a chunk)."""
+    from tpuvr_torch.ops import vjp as tvjp
+
+    grid = torch.as_tensor(np.array(smoke_sphere(N)))
+    cam = _port_cam(_cams()[1])
+    axis = jcam.dominant_axis(cam)
+    plan, _, (gsc, coeffs, en, dt) = trender.sweep_inputs(
+        trender.prepare_grid(grid, axes=(axis,), device="cpu"), cam,
+        RenderConfig(), "cpu")
+    rng = np.random.default_rng(2)
+    d_rgb = torch.as_tensor(rng.standard_normal((3, *dt.shape)), dtype=dt.dtype)
+    d_t = torch.as_tensor(rng.standard_normal(tuple(dt.shape)), dtype=dt.dtype)
+    op = tvjp.sweep_op(plan.reverse, 1.0, 0.0, "torch", softplus=softplus)
+    g = gsc.clone().requires_grad_(True)
+    out = tvjp.chunked_sweep(op, g, coeffs, en, dt, max_rows=max_rows)
+    (got,) = torch.autograd.grad(out, g, (d_rgb, d_t))
+    n_v = dt.shape[0]
+    n_chunks = -(-n_v // max_rows)
+    while n_v % n_chunks:
+        n_chunks += 1
+    rows = n_v // n_chunks
+    ref = None
+    for i in range(n_chunks):
+        keep = torch.zeros((n_v, 1), dtype=dt.dtype)
+        keep[i * rows:(i + 1) * rows] = 1.0
+        g = gsc.clone().requires_grad_(True)
+        (part,) = torch.autograd.grad(op(g, coeffs, en, dt), g,
+                                      (d_rgb * keep, d_t * keep))
+        ref = part if ref is None else ref + part
+    assert n_chunks > 1 and torch.equal(got, ref)

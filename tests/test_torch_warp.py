@@ -407,3 +407,37 @@ def test_render_views_grouped_orbit_matches_render_all_views():
     b = tfit.render_all_views(gt, cams, RCFG, device="cpu")
     assert len(tfit.group_views(cams, gt.shape)) == 4
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("ok", None), ("x_shape", "shape"), ("y_double", "float32"),
+    ("vb_long", "int32"), ("f_v", "f_v"), ("smem", "shared memory"),
+    ("transposed", "contiguous"), ("vb_shape", "vbase has shape")])
+def test_row_warp_wrapper_checks_name_each_fault(case, match):
+    """The kernel wrappers' one chained check passes good tiles and, for a
+    bad one, raises the ValueError that names the fault (the checks run
+    before any launch, so they are held here on CPU tensors)."""
+    from tpuvr_torch.kernels import warp as kwarp
+
+    y, x = torch.zeros(4, 8), torch.zeros(4, 8)
+    vb = torch.zeros(4, dtype=torch.int32)
+    lattice, f_v = (4, 16, 16), 8
+    if case == "x_shape":
+        x = x[:, :-1].contiguous()
+    elif case == "y_double":
+        y = y.double()
+    elif case == "vb_long":
+        vb = vb.long()
+    elif case == "f_v":
+        f_v = 24
+    elif case == "smem":
+        lattice, f_v = (4, 512, 8), 512
+    elif case == "transposed":
+        y, x = y.t(), x.t()
+    elif case == "vb_shape":
+        vb = vb[:3]
+    if match is None:
+        assert tuple(kwarp._check(lattice, y, x, vb, f_v, y.device)) == (4, 8)
+        return
+    with pytest.raises(ValueError, match=match):
+        kwarp._check(lattice, y, x, vb, f_v, y.device)

@@ -65,13 +65,15 @@ def render_case(mesh, *, device, grid, cam, cfg):
 
 
 def sweep_grad_case(mesh, *, device, grid_sc, coeffs, enables, dt, d_rgb,
-                    d_t, views, reverse, bwd_chunks=1, ring_chunks=None):
+                    d_t, views, reverse, bwd_chunks=1, ring_chunks=None,
+                    eps=0.0, softplus=False):
     """The gradient of ``sweep_op`` summed over the mesh, each rank
     sweeping rows [r V/n, (r + 1) V/n) of every view: ``dt`` is
     (views, V, U), the cotangents (3, views, V, U) and (views, V, U), the
     coefficients and enables (S,) for one view or (views, S). With
     ``ring_chunks`` through the ring backward, else slab by slab
-    (``bwd_chunks`` slabs) in stream order."""
+    (``bwd_chunks`` slabs) in stream order; ``eps`` is the early-stop
+    threshold, ``softplus`` the op's raw-density switch."""
     from tpuvr_torch.ops.vjp import sweep_op
 
     n_v = dt.shape[1]
@@ -81,8 +83,8 @@ def sweep_grad_case(mesh, *, device, grid_sc, coeffs, enables, dt, d_rgb,
         kw = dict(bwd_chunks=bwd_chunks, mesh=mesh)
     else:
         kw = dict(ring=(mesh, mesh.world, ring_chunks))
-    op = sweep_op(reverse, 1.0, 0.0, "torch", views=views, row0=rows.start,
-                  **kw)
+    op = sweep_op(reverse, 1.0, eps, "torch", views=views, row0=rows.start,
+                  softplus=softplus, **kw)
     g = _t(grid_sc, device).requires_grad_(True)
     rgb, trans = op(g, tuple(_t(c, device) for c in coeffs),
                     _t(enables, device),
@@ -107,12 +109,13 @@ def row_tile(args, views, mesh):
 
 
 def ring_case(mesh, *, device, grid_sc, coeffs, enables, dt, views, reverse,
-              ring_chunks, seed=0):
+              ring_chunks, seed=0, eps=0.0, softplus=False):
     """The ring backward of this rank's row tile (``dt`` (views * V, U),
     the coefficients and enables (S,) or (views, S)) against the backward
-    in one call then one all-reduce, on random cotangents: (ring gradient,
-    reference, {"k6": backward kernel launches, "ring": ring launches,
-    "all_reduce": all-reduces} of the ring call)."""
+    in one call then one all-reduce, on random cotangents, with early ray
+    termination at ``eps`` and the raw-density ``softplus`` switch: (ring
+    gradient, reference, {"k6": backward kernel launches, "ring": ring
+    launches, "all_reduce": all-reduces} of the ring call)."""
     from tpuvr_torch.dist import init
     from tpuvr_torch.kernels import ring_bwd
     from tpuvr_torch.kernels import sweep as ksweep
@@ -121,7 +124,8 @@ def ring_case(mesh, *, device, grid_sc, coeffs, enables, dt, views, reverse,
     args, row0 = row_tile((_t(grid_sc, device),
                            tuple(_t(c, device) for c in coeffs),
                            _t(enables, device), _t(dt, device)), views, mesh)
-    kw = dict(reverse=reverse, views=views, row0=row0)
+    kw = dict(reverse=reverse, views=views, row0=row0, early_stop_eps=eps,
+              softplus=softplus)
     rgb, trans = ksweep.sweep_fwd(*args, **kw)
     gen = torch.Generator(device=device).manual_seed(seed + mesh.rank)
     d_rgb = torch.randn(rgb.shape, generator=gen, device=device)
@@ -173,3 +177,10 @@ def fit_case(mesh, *, device, targets, cams, grid_shape, cfg, render_cfg,
                                mesh=mesh, run_dir=run_dir, device=device,
                                **fit_kw)
     return hist["loss"], params
+
+
+def resume_case(mesh, *, device, run_dirs, **fit_kw):
+    """:func:`fit_case` with ``resume=True``, rank r reading and writing
+    ``run_dirs[r]`` (ranks on hosts that share no directory)."""
+    return fit_case(mesh, device=device, run_dir=run_dirs[mesh.rank],
+                    resume=True, **fit_kw)

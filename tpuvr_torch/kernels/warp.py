@@ -25,59 +25,103 @@ from tpuvr_torch.kernels.warp_torch import (
 launches: collections.Counter[str] = collections.Counter()
 
 # The backward's tile stage (csrc/warp_rows.cu) keeps a (C, f_v, 32)
-# window slab and a 1024-pixel batch in shared memory, and puts the tile on
-# gridDim.y.
+# window slab, a 1024-pixel batch and its bins in shared memory, puts the
+# tile on gridDim.y, and flags each (tile, 32-column slab) it reached.
 _SLAB, _BATCH = 32, 1024
 _SMEM_BYTES = 232448  # what one block may use on sm_90
 _MAX_TILES = 65535
+_ENTRIES = {"tpuvr_warp_rows_fwd": 5, "tpuvr_warp_rows_bwd": 7}  # pointers
+_fns = {}
 
 
 def _entry(name):
-    fn = getattr(_build.load("warp_rows"), name)
-    n_ptr = 5 if name == "tpuvr_warp_rows_fwd" else 6
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    """The C entry ``name``, resolved and typed once per process."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(_build.load("warp_rows"), name)
+        fn.argtypes = ([ctypes.c_void_p] * _ENTRIES[name]
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 
+def _launch(name, dev, *args):
+    """Launch ``name`` on ``dev``'s current stream (making ``dev`` current
+    only when it is not); raises on a CUDA error. The raw stream and the
+    current device come from PyTorch's C bindings, which skip building a
+    ``torch.cuda.Stream`` at every launch."""
+    c = torch._C
+    if dev.index == c._cuda_getDevice():
+        err = _entry(name)(*args, c._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = _entry(name)(*args, c._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{name[6:]} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
 def _bwd_smem_bytes(n_c: int, f_v: int) -> int:
-    """Shared memory of one backward tile-stage block."""
-    return 4 * (n_c * f_v * _SLAB + (3 + n_c) * _BATCH + 1)
+    """Shared memory of one backward tile-stage block: the window slab, the
+    staged batch (positions and cotangents, again in bin order, bins,
+    sorted order), the bins' counts and offsets, the scan's warp totals."""
+    n_bins = (f_v + 1) * (_SLAB + 1)
+    return 4 * (n_c * f_v * _SLAB + (6 + 2 * n_c) * _BATCH + 2 * n_bins
+                + 33)
 
 
 def _check(inter_shape, y_t, x_t, vbase, f_v, device):
-    """Validate the tiles against a (C, V, U) lattice; returns (T, P)."""
+    """Validate the tiles against a (C, V, U) lattice; returns (T, P). The
+    common case passes one chained test; a failure raises the ValueError
+    :func:`_explain` names it with."""
+    n_c, n_v, n_u = inter_shape
+    shape = y_t.shape
+    if (y_t.device == x_t.device == vbase.device == device
+            and y_t.dtype == x_t.dtype == torch.float32
+            and vbase.dtype == torch.int32 and len(shape) == 2
+            and x_t.shape == shape and vbase.shape == shape[:1]
+            and y_t.is_contiguous() and x_t.is_contiguous()
+            and vbase.is_contiguous()
+            and min(n_c, n_v, n_u, *shape) > 0 and 0 < f_v <= n_v
+            and shape[0] <= _MAX_TILES
+            and _bwd_smem_bytes(n_c, f_v) <= _SMEM_BYTES):
+        return shape
+    raise _explain(inter_shape, y_t, x_t, vbase, f_v, device)
+
+
+def _explain(inter_shape, y_t, x_t, vbase, f_v, device) -> ValueError:
+    """The ValueError naming the first check of :func:`_check` that
+    fails."""
     n_c, n_v, n_u = inter_shape
     for name, t in (("y_t", y_t), ("x_t", x_t), ("vbase", vbase)):
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, the image on {device}")
+            return ValueError(f"{name} is on {t.device}, the image on "
+                              f"{device}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            return ValueError(f"{name} must be contiguous")
     if y_t.dtype != torch.float32 or x_t.dtype != torch.float32:
-        raise ValueError(f"positions must be float32, got {y_t.dtype} and "
-                         f"{x_t.dtype}")
+        return ValueError(f"positions must be float32, got {y_t.dtype} and "
+                          f"{x_t.dtype}")
     if vbase.dtype != torch.int32:
-        raise ValueError(f"vbase must be int32, got {vbase.dtype}")
+        return ValueError(f"vbase must be int32, got {vbase.dtype}")
     if y_t.dim() != 2 or x_t.shape != y_t.shape:
-        raise ValueError(f"y_t and x_t must be one (n_tiles, P) shape, got "
-                         f"{tuple(y_t.shape)} and {tuple(x_t.shape)}")
+        return ValueError(f"y_t and x_t must be one (n_tiles, P) shape, got "
+                          f"{tuple(y_t.shape)} and {tuple(x_t.shape)}")
     n_tiles, p = y_t.shape
-    if tuple(vbase.shape) != (n_tiles,):
-        raise ValueError(f"vbase has shape {tuple(vbase.shape)}, expected "
-                         f"({n_tiles},)")
+    if vbase.shape != (n_tiles,):
+        return ValueError(f"vbase has shape {tuple(vbase.shape)}, expected "
+                          f"({n_tiles},)")
     if min(n_c, n_v, n_u, n_tiles, p) <= 0:
-        raise ValueError("empty image or tiles")
+        return ValueError("empty image or tiles")
     if not 0 < f_v <= n_v:
-        raise ValueError(f"window height f_v={f_v} outside (0, V={n_v}]")
+        return ValueError(f"window height f_v={f_v} outside (0, V={n_v}]")
     if n_tiles > _MAX_TILES:
-        raise ValueError(f"{n_tiles} tiles; the kernels take at most "
-                         f"{_MAX_TILES}")
-    if _bwd_smem_bytes(n_c, f_v) > _SMEM_BYTES:
-        raise ValueError(f"a {n_c}-channel window of {f_v} rows needs "
-                         f"{_bwd_smem_bytes(n_c, f_v)} bytes of shared "
-                         f"memory; a block has {_SMEM_BYTES}")
-    return n_tiles, p
+        return ValueError(f"{n_tiles} tiles; the kernels take at most "
+                          f"{_MAX_TILES}")
+    return ValueError(f"a {n_c}-channel window of {f_v} rows needs "
+                      f"{_bwd_smem_bytes(n_c, f_v)} bytes of shared "
+                      f"memory; a block has {_SMEM_BYTES}")
 
 
 def warp_rows_fwd(inter_cvu, y_t, x_t, vbase, *, f_v: int):
@@ -96,16 +140,11 @@ def warp_rows_fwd(inter_cvu, y_t, x_t, vbase, *, f_v: int):
         raise ValueError("inter_cvu must be contiguous")
     dev = inter_cvu.device
     n_c, n_v, n_u = inter_cvu.shape
-    n_tiles, p = _check(inter_cvu.shape, y_t, x_t, vbase, f_v, dev)
-    out = torch.empty((n_c, n_tiles, p), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _entry("tpuvr_warp_rows_fwd")(
-            inter_cvu.data_ptr(), y_t.data_ptr(), x_t.data_ptr(),
-            vbase.data_ptr(), out.data_ptr(), n_c, n_v, n_u, n_tiles, p,
-            int(f_v), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_rows_fwd kernel launch failed: CUDA error "
-                           f"{err}")
+    n_tiles, p = _check((n_c, n_v, n_u), y_t, x_t, vbase, f_v, dev)
+    out = inter_cvu.new_empty((n_c, n_tiles, p))
+    _launch("tpuvr_warp_rows_fwd", dev, inter_cvu.data_ptr(), y_t.data_ptr(),
+            x_t.data_ptr(), vbase.data_ptr(), out.data_ptr(), n_c, n_v, n_u,
+            n_tiles, p, int(f_v))
     launches["warp_rows_fwd"] += 1
     return out
 
@@ -128,17 +167,15 @@ def warp_rows_bwd(d_out, y_t, x_t, vbase, n_v: int, n_u: int, *, f_v: int):
     if tuple(d_out.shape[1:]) != (n_tiles, p):
         raise ValueError(f"d_out has shape {tuple(d_out.shape)}, expected "
                          f"({n_c}, {n_tiles}, {p})")
-    part = torch.empty((n_tiles, n_c, f_v, n_u), dtype=torch.float32,
-                       device=dev)
-    d_inter = torch.empty((n_c, n_v, n_u), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _entry("tpuvr_warp_rows_bwd")(
-            d_out.data_ptr(), y_t.data_ptr(), x_t.data_ptr(),
-            vbase.data_ptr(), part.data_ptr(), d_inter.data_ptr(), n_c, n_v,
-            n_u, n_tiles, p, int(f_v),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"warp_rows_bwd kernel launch failed: CUDA error "
-                           f"{err}")
+    # One scratch allocation: the (T, slabs, C, f_v, 32) window gradients,
+    # then the (T, slabs) int32 flags of the slabs each tile reached.
+    slabs = -(-n_u // _SLAB)
+    n_part = n_tiles * slabs * n_c * f_v * _SLAB
+    scratch = d_out.new_empty(n_part + n_tiles * slabs)
+    d_inter = d_out.new_empty((n_c, n_v, n_u))
+    ptr = scratch.data_ptr()
+    _launch("tpuvr_warp_rows_bwd", dev, d_out.data_ptr(), y_t.data_ptr(),
+            x_t.data_ptr(), vbase.data_ptr(), ptr, ptr + 4 * n_part,
+            d_inter.data_ptr(), n_c, n_v, n_u, n_tiles, p, int(f_v))
     launches["warp_rows_bwd"] += 1
     return d_inter

@@ -141,8 +141,14 @@ def sweep_op(
         kw["views"] = int(views)
     spec = (fwd, bwd, kw, int(bwd_chunks), mesh, ring)
 
-    def op(grid_sc, coeffs, enables, dt_map):
-        return _Sweep.apply(grid_sc, *coeffs, enables, dt_map, spec)
+    def op(grid_sc, coeffs, enables, dt_map, row0=0):
+        """``row0``: ``dt_map`` holds rows [row0, row0 + V) of the op's own
+        rows (a row chunk of them), sampled where those rows are."""
+        s = spec
+        if row0:
+            s = (fwd, bwd, {**kw, "row0": kw["row0"] + int(row0)},
+                 *spec[3:])
+        return _Sweep.apply(grid_sc, *coeffs, enables, dt_map, s)
 
     return op
 
@@ -185,11 +191,14 @@ def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
 def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
     """Apply a sweep op over row chunks of the intermediate image.
 
-    Row ``r0 + v`` of the full image samples at ``(r0 + v)*ay + by``, so a
-    chunk is exactly the full op with ``by := by + r0*ay``. Per-chunk early
-    termination is at least as aggressive as whole-image termination and
-    keeps the same error bound. ``max_rows`` None disables chunking. Each
-    chunk is one call of ``op``, so gradients flow through every chunk.
+    ``op`` is a :func:`sweep_op`; chunk ``i`` is one call of it with the
+    chunk's first row as ``row0``, so row ``r0 + v`` samples at ``(r0 +
+    v)*ay + by``, exactly where the whole image's row does (the JAX
+    package shifts ``by`` by ``r0*ay`` instead, which moves each position
+    by up to an ulp). Per-chunk early termination is at least as
+    aggressive as whole-image termination and keeps the same error bound.
+    ``max_rows`` None disables chunking. Gradients flow through every
+    chunk.
     """
     n_v = dt_map.shape[0]
     if max_rows is None or n_v <= max_rows:
@@ -198,12 +207,11 @@ def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
     while n_v % n_chunks:
         n_chunks += 1
     rows = n_v // n_chunks
-    ay, by, ax, bx = coeffs
     rgbs, ts = [], []
     for i in range(n_chunks):
         r0 = i * rows
-        rgb_i, t_i = op(grid_sc, (ay, by + r0 * ay, ax, bx), enables,
-                        dt_map[r0:r0 + rows])
+        rgb_i, t_i = op(grid_sc, coeffs, enables, dt_map[r0:r0 + rows],
+                        row0=r0)
         rgbs.append(rgb_i)
         ts.append(t_i)
     return torch.cat(rgbs, dim=1), torch.cat(ts, dim=0)

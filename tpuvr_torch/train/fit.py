@@ -520,9 +520,10 @@ def fit_grid(
         (``tpuvr_torch.dist.data_mesh()``): ray data parallelism over its
         ranks, each of which calls ``fit_grid`` with the same arguments.
         The ranks start from rank 0's parameters; rank 0 alone writes
-        metrics and checkpoints, and every rank reads a checkpoint on
-        ``resume``. A mesh with a ``"z"`` axis > 1 raises
-        NotImplementedError.
+        metrics and checkpoints, and on ``resume`` rank 0's checkpoint
+        decides the start step, the parameters and the optimizer state
+        of every rank (the others need not see rank 0's ``run_dir``). A
+        mesh with a ``"z"`` axis > 1 raises NotImplementedError.
       grad_buckets: MeshConfig.grad_buckets, the all-reduces the grid
         gradient is cut into after the backward.
       bwd_chunks: MeshConfig.bwd_chunks: > 1 cuts the backward into slabs
@@ -620,8 +621,9 @@ def fit_grid(
             dev) for k in group_keys
     }
 
-    if mesh is not None:
-        broadcast(params, mesh)  # every rank starts from rank 0's state
+    if mesh is not None:  # after every check that can refuse the run
+        params, opt_state, start_step = _start_from_rank0(
+            params, opt_state, start_step, opt, mesh)
     rng = np.random.default_rng(cfg.seed + start_step)
     history = {"loss": [], "step_ms": []}
     pending = None  # (step numbers, key, device losses) awaiting readback
@@ -711,6 +713,39 @@ def fit_grid(
     if fused and cur_layout is not None:
         params, opt_state = _relayout(params, opt_state, cur_layout, None)
     return params_to_grid(params, cfg.density_softplus), params, history
+
+
+def _broadcast_tree(tree, mesh, device):
+    """Rank 0's copy of a state tree: tensors broadcast in place, Python
+    numbers through a one-element tensor."""
+    if isinstance(tree, dict):
+        return {k: _broadcast_tree(v, mesh, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_broadcast_tree(v, mesh, device) for v in tree)
+    if torch.is_tensor(tree):
+        return broadcast(tree.contiguous(), mesh)
+    if isinstance(tree, (int, float)):
+        t = torch.tensor([tree], dtype=torch.float64 if isinstance(
+            tree, float) else torch.int64, device=device)
+        return type(tree)(broadcast(t, mesh).item())
+    return tree
+
+
+def _start_from_rank0(params, opt_state, start_step, opt, mesh):
+    """Every rank of ``mesh`` starts where rank 0 does: rank 0's start step
+    (its own run directory decides a resume; the ranks' hosts need not
+    share one), its parameters, and, when it resumed, its optimizer
+    state. A rank that restored a checkpoint rank 0 did not have starts
+    from a fresh optimizer state, as rank 0 does. Issues two broadcasts,
+    and one per state tensor or number after a resume."""
+    head = torch.tensor([start_step], dtype=torch.int64, device=params.device)
+    rank0_step = int(broadcast(head, mesh).item())
+    broadcast(params, mesh)
+    if rank0_step > 0:
+        opt_state = _broadcast_tree(opt_state, mesh, params.device)
+    elif start_step > 0:
+        opt_state = opt.init(params)
+    return params, opt_state, rank0_step
 
 
 def render_all_views(grid, cams, render_cfg: RenderConfig = RenderConfig(),
