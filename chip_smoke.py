@@ -48,15 +48,22 @@ Without a card it exits non-zero before printing any result.
 
 ``--phase dist`` runs the build and phase 5 alone (for a machine with
 four cards); ``--phase warp`` runs the build and the row warp's kernel
-checks and times (K7, K8 at c4's row plans) alone.
+checks and times (K7, K8 at c4's row plans) alone; ``--phase bwd`` runs
+the build and the backward sweep's checks and times alone (K6 at the c4
+minibatch, also on a rank's row tiles and at other slab heights, K3 at
+the c4 view, c2 and the headline), with each stage's device time and a
+SHA-256 digest of each gradient, for holding a redesign bit for bit
+against its parent in one call.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -93,6 +100,26 @@ DIST_MODES = {"bucketed": dict(grad_buckets=4),
 
 def log(msg):
     print(msg, flush=True)
+
+
+def ptxas_report(text):
+    """One line per kernel instantiation from nvcc's ``-Xptxas -v`` output:
+    its name (template arguments as numbers), spills and registers."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                          m.group(1))
+            name = m.group(1)[:48]
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {spill}; {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -142,7 +169,8 @@ def device_ms(fn, reps, n_top=3):
     for e in prof.key_averages():
         t = e.self_device_time_total
         if e.device_type != DeviceType.CPU and t > 0:
-            per[e.key[:48]] = per.get(e.key[:48], 0.0) + t / 1e3 / reps
+            name = kernel_name(e.key)
+            per[name] = per.get(name, 0.0) + t / 1e3 / reps
     if not per:
         return None, [], ops / reps
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
@@ -652,6 +680,202 @@ def view_batch_kernels(dev):
     log("[kernel] view batch c4 (highest): " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in out.items()))
+    return out
+
+
+def kernel_name(key):
+    """The function name of a profiler key (a demangled CUDA kernel
+    signature), or the key's first 48 characters (a memcpy)."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+    return m.group(1) if m else key[:48]
+
+
+def digest(t):
+    """SHA-256 of a tensor's float32 bytes after ``+ 0.0``, so that the
+    sign of a zero does not count."""
+    return hashlib.sha256((t + 0.0).float().cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def bwd_phase(dev):
+    """The backward sweep alone (K6 over a view batch, K3 over one view),
+    for redesigning it: checks, SHA-256 digests of the gradients (for
+    holding a change bit for bit against its parent in one call), CUDA
+    event times, the profiler's device time split by CUDA kernel (stage by
+    stage) and the slab height, at the c4 minibatch (also on one rank's
+    row tiles, a quarter of each view's rows at row0 = 0, 64, 128, 192,
+    and at other slab heights), at the c4 view, c2 and the headline.
+    Returns the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+    from tpuvr_torch.kernels.sweep_torch import sweep_bwd_views_torch
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ref.camera import dominant_axis
+
+    reverse, views, args = c4_minibatch(dev)
+    s, v_pv = args[0].shape[0], args[3].shape[0] // views
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d_rgb = torch.randn((3, *args[3].shape), generator=gen, device=dev)
+    d_t = torch.randn(args[3].shape, generator=gen, device=dev)
+    raw = args[0].clone()
+    raw[:, 0] = torch.randn(raw[:, 0].shape, generator=gen,
+                            device=dev) * 2.0 - 1.0
+    dense = args[0] + torch.tensor([0.05, 0.0, 0.0, 0.0], device=dev)[
+        None, :, None, None]
+    out = {"shape": f"c4 minibatch: {views} views at {v_pv}x"
+           f"{args[3].shape[1]}, grid {tuple(args[0].shape)}",
+           "digests": {}, "k6": {}, "k3": {}, "tiles": {}, "slabs": {}}
+
+    def one_view(a, w):
+        grid_sc, coeffs, en, dt = a
+        return (grid_sc, tuple(c[w] for c in coeffs), en[w],
+                dt[w * v_pv:(w + 1) * v_pv])
+
+    def k3_sum(a, rgb, t, kw):
+        total = None
+        for w in range(views):
+            sl = slice(w * v_pv, (w + 1) * v_pv)
+            g = kbwd.sweep_bwd(*one_view(a, w), rgb[:, sl], t[sl],
+                               d_rgb[:, sl], d_t[sl], **kw)
+            total = g if total is None else total + g
+        return total
+
+    def timed(label, call, reps=10):
+        ms = cuda_ms(call, reps)
+        dev_ms, top, _ = device_ms(call, 5, n_top=8)
+        log(f"[bwd] {label}: {ms:.4f} ms (events); device " + (
+            "not measured" if dev_ms is None else "; ".join(
+                f"{k} {v:.4f} ms" for k, v in top)))
+        return {"ms": ms, "device_ms": dev_ms, "by_kernel": dict(top)}
+
+    # K6 at the c4 minibatch: each tier, softplus, eps 1e-2 on a denser
+    # grid where rays terminate.
+    for label, prec, softplus, eps in (
+            ("highest", "highest", False, 0.0), ("high", "high", False, 0.0),
+            ("default", "default", False, 0.0),
+            ("highest_softplus", "highest", True, 0.0),
+            ("highest_eps1e-2", "highest", False, 1e-2)):
+        a = ((raw if softplus else dense if eps else args[0]), *args[1:])
+        kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=eps,
+                  precision=prec, softplus=softplus)
+        rgb, t = ksweep.sweep_fwd(*a, views=views, **kw)
+        k = kbwd.sweep_bwd(*a, rgb, t, d_rgb, d_t, views=views, **kw)
+        again = kbwd.sweep_bwd(*a, rgb, t, d_rgb, d_t, views=views, **kw)
+        loop = k3_sum(a, rgb, t, kw)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(k, again))
+        line = f"[bwd] K6 c4 {label}: two calls bit-identical {same}"
+        if softplus:
+            # K6 multiplies the views' density sum by sigmoid(raw) once, K3
+            # each view's: the two differ by that rounding.
+            vs_k3 = float((k - loop).abs().max()) <= 1e-6 * float(
+                k.abs().max())
+            line += f", within 1e-6 of max|grad| of K3 summed {vs_k3}"
+        else:
+            vs_k3 = bool(torch.equal(k, loop))
+            line += f", equal to K3 summed in view order {vs_k3}"
+        ok = same and vs_k3 and bool(torch.isfinite(k).all())
+        if not eps:
+            p = sweep_bwd_views_torch(*a, rgb, t, d_rgb, d_t, views=views,
+                                      **kw)
+            scale = float(p.abs().max())
+            err = float((k - p).abs().max()) / scale
+            line += (f", {err:.3e} of max|grad| {scale:.3e} against plain "
+                     f"(tol {GRAD_TOL[prec]:g})")
+            ok = ok and scale > 0 and err <= GRAD_TOL[prec]
+            del p
+        out["digests"][f"k6_c4_{label}"] = digest(k)
+        log(line)
+        check(ok, f"K6 c4 {label}")
+        del k, again, loop
+
+    kw = dict(reverse=reverse, sigma_scale=1.0, early_stop_eps=0.0,
+              precision="highest")
+    rgb, t = ksweep.sweep_fwd(*args, views=views, **kw)
+    full = timed("K6 c4 minibatch (highest, eps 0)", lambda: kbwd.sweep_bwd(
+        *args, rgb, t, d_rgb, d_t, views=views, **kw))
+    full["slab"] = kbwd.slab_slices(s, *t.shape)
+    out["k6"] = full
+
+    # One rank's row tile: a quarter of each view's rows.
+    n_tiles = 4
+    v_l = v_pv // n_tiles
+    for r in range(n_tiles):
+        def rows(x, r=r):
+            return x.unflatten(-2, (views, v_pv))[
+                ..., r * v_l:(r + 1) * v_l, :].flatten(-3, -2).contiguous()
+
+        tile = (args[0], args[1], args[2], rows(args[3]))
+        k_rgb, k_t = ksweep.sweep_fwd(*tile, views=views, row0=r * v_l, **kw)
+        tr, tt = rows(d_rgb), rows(d_t)
+
+        def call(tile=tile, k_rgb=k_rgb, k_t=k_t, tr=tr, tt=tt, r=r):
+            return kbwd.sweep_bwd(*tile, k_rgb, k_t, tr, tt, views=views,
+                                  row0=r * v_l, **kw)
+
+        g = call()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(g, call())) and bool(torch.isfinite(g).all()),
+              f"K6 row tile {r}")
+        out["digests"][f"k6_c4_rows{r * v_l}"] = digest(g)
+        res = timed(f"K6 c4 row tile row0={r * v_l} ({v_l} of {v_pv} rows)",
+                    call)
+        res["of_full"] = res["ms"] / full["ms"]
+        out["tiles"][f"row0_{r * v_l}"] = res
+        del g
+    out["tile_of_full_max"] = max(x["of_full"] for x in out["tiles"].values())
+
+    # Slab heights other than the wrapper's.
+    slab_fn = kbwd.slab_slices
+    try:
+        for height in (2, 4, 8, 16, 32, 64):
+            kbwd.slab_slices = lambda s_, n_v, n_u, h=height: min(s_, h)
+            out["slabs"][height] = timed(
+                f"K6 c4 minibatch at slab height {height}",
+                lambda: kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t,
+                                       views=views, **kw), 5)
+    finally:
+        kbwd.slab_slices = slab_fn
+    del raw, dense, rgb, t
+
+    # K3 at backward_kernels' shapes, its render configs' settings.
+    c4, c2 = configs.CONFIGS["c4"], configs.CONFIGS["c2"]
+    grid256 = smoke_sphere(c4["grid_n"], device=dev)
+    cases = {
+        "c4_view": (grid256, configs.cameras(c4)[0], c4["render"]),
+        "c2": (smoke_sphere(c2["grid_n"], device=dev), configs.camera(c2),
+               c2["render"]),
+        "headline": (grid256, configs.camera(configs.CONFIGS["headline"]),
+                     configs.CONFIGS["headline"]["render"]),
+    }
+    for name, (grid, cam, run) in cases.items():
+        prep = render.prepare_grid(grid, axes=(dominant_axis(cam),),
+                                   device=dev)
+        plan, _, a = render.sweep_inputs(prep, cam, run, dev)
+        gk = torch.Generator(device=dev).manual_seed(4)
+        kw3 = dict(reverse=plan.reverse, sigma_scale=run.sigma_scale,
+                   early_stop_eps=0.0, precision=run.precision)
+        r3, t3 = ksweep.sweep_fwd(*a, **kw3)
+        dr = torch.randn((3, *t3.shape), generator=gk, device=dev)
+        dtt = torch.randn(t3.shape, generator=gk, device=dev)
+
+        def call(a=a, r3=r3, t3=t3, dr=dr, dtt=dtt, kw3=kw3):
+            return kbwd.sweep_bwd(*a, r3, t3, dr, dtt, **kw3)
+
+        g = call()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(g, call())) and bool(torch.isfinite(g).all()),
+              f"K3 {name}")
+        out["digests"][f"k3_{name}_{run.precision}"] = digest(g)
+        res = timed(f"K3 {name} S={a[0].shape[0]} V,U={tuple(t3.shape)} "
+                    f"{run.precision}", call)
+        res["slab"] = kbwd.slab_slices(a[0].shape[0], *t3.shape)
+        out["k3"][name] = res
+        del prep, a, g
+    for key, value in sorted(out["digests"].items()):
+        log(f"[bwd] digest {key} {value}")
     return out
 
 
@@ -1412,11 +1636,14 @@ def finish(t_start):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "dist", "warp"),
+    parser.add_argument("--phase", choices=("all", "dist", "warp", "bwd"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
                              "alone; 'warp': build, then the row warp's "
-                             "kernels (K7, K8) alone")
+                             "kernels (K7, K8) alone; 'bwd': build, then "
+                             "the backward sweep (K6, K3) alone, with "
+                             "digests of its gradients and its stages' "
+                             "times")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1442,9 +1669,8 @@ def main(argv=None):
     logs = _build.build()
     log(f"[build] {sorted(_build.SOURCES)} in {time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"[build] {name}: {line}")
     if opts.phase == "dist":
         dist, ring_entry, _ = dist_phase()
         log(json.dumps({"dist": dist}))
@@ -1452,6 +1678,9 @@ def main(argv=None):
         return finish(t_start)
     if opts.phase == "warp":
         log(json.dumps({"warp": warp_kernels(dev)}))
+        return finish(t_start)
+    if opts.phase == "bwd":
+        log(json.dumps({"bwd": bwd_phase(dev)}))
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.

@@ -657,3 +657,117 @@ def test_warp_rows_bwd_kernel_edge_cases(card, name):
     torch.testing.assert_close(
         kwarp.warp_rows_fwd(inter, y, x, vb, f_v=f_v),
         warp_rows_fwd_torch(inter, y, x, vb, f_v=f_v), rtol=0, atol=1e-6)
+
+
+def _single_view_args(card, n, res, name="c1"):
+    """A front-ortho (c1) or orbit (c2) sweep of the smoke sphere at n^3
+    from res^2 rays, with a little density everywhere so every slice
+    carries gradient."""
+    cfg = configs.CONFIGS[name]
+    cam = configs.camera(cfg, n, res)
+    prep = render.prepare_grid(
+        smoke_sphere(n, device=card) + torch.tensor([0.2, 0.0, 0.0, 0.0],
+                                                    device=card),
+        axes=(dominant_axis(cam),), device=card)
+    plan, _, args = render.sweep_inputs(prep, cam, RenderConfig(), card)
+    return plan.reverse, args
+
+
+@pytest.mark.parametrize("n,res,name", [
+    (64, 256, "c1"),   # |a| ~ 0.35: windows streamed in pieces
+    (16, 256, "c1"),   # |a| ~ 0.09: pieces, weights computed in place
+    (16, 256, "c2"),   # the same under a reverse perspective sweep
+    (64, 16, "c1"),    # |a| ~ 5.6: voxels no ray reaches
+], ids=["c1_64_at_256", "grid16_at_256", "c2_grid16_at_256", "grid64_at_16"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_sweep_bwd_kernel_footprints_beyond_the_buffers(card, n, res, name,
+                                                        precision):
+    """The voxel stage where a tile's ray footprint outgrows its shared
+    buffers (streamed in column pieces, windows read in place, weights
+    computed where used) and where rays are sparser than voxels: K3
+    against its plain version (GRAD_TOL of max|grad|) and bit for bit over
+    two calls."""
+    reverse, args = _single_view_args(card, n, res, name)
+    kw = dict(reverse=reverse, precision=precision, sigma_scale=1.3)
+    rgb, t = sweep_fwd_torch(*args, **kw)
+    d_rgb, d_t = _cotangents(card, args, 10)
+    k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
+    p = sweep_bwd_torch(*args, rgb, t, d_rgb, d_t, **kw)
+    scale = float(p.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(k, p, rtol=0, atol=GRAD_TOL[precision] * scale)
+    assert torch.equal(k, kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw))
+
+
+@pytest.mark.parametrize("group", [0, 1])
+@pytest.mark.parametrize("r", [0, 1, 3])
+def test_sweep_bwd_views_row_tile_zero_where_unreached(card, group, r):
+    """One rank's row tile (a quarter of each view's rows, swept with
+    row0) of a 4-view batch: every voxel row that no view's tile rays
+    reach (tent.cuh's rays_reaching, mirrored in kernels/sweep_bwd.py) is
+    exactly 0.0; the tile's gradient matches its plain version; two calls
+    are bit-identical."""
+    reverse, (grid_sc, coeffs, en, dt) = _views_args(card, group)
+    views = 4
+    v_pv = dt.shape[0] // views
+    v_l = v_pv // 4
+
+    def rows(x):
+        return x.unflatten(-2, (views, v_pv))[
+            ..., r * v_l:(r + 1) * v_l, :].flatten(-3, -2).contiguous()
+
+    tile = (grid_sc, coeffs, en, rows(dt))
+    kw = dict(reverse=reverse, precision="highest", sigma_scale=1.3,
+              views=views, row0=r * v_l)
+    rgb, t = ksweep.sweep_fwd(*tile, **kw)
+    d_rgb, d_t = _cotangents(card, tile, 11)
+    k = kbwd.sweep_bwd(*tile, rgb, t, d_rgb, d_t, **kw)
+    assert torch.equal(k, kbwd.sweep_bwd(*tile, rgb, t, d_rgb, d_t, **kw))
+    p = sweep_bwd_views_torch(*tile, rgb, t, d_rgb, d_t, **kw)
+    scale = float(p.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(k, p, rtol=0, atol=1e-5 * scale)
+    s, _, n_y, _ = grid_sc.shape
+    ay, by = (c.cpu().numpy() for c in coeffs[:2])
+    on = en.cpu().numpy()
+    reached = np.zeros((s, n_y), dtype=bool)
+    for step in range(s):
+        at = s - 1 - step if reverse else step
+        for w in range(views):
+            if on[w, step] != 0.0:
+                lo, hi = kbwd.rays_reaching(np.arange(n_y), ay[w, step],
+                                            by[w, step], r * v_l + v_l)
+                reached[at] |= np.maximum(lo, r * v_l) <= hi
+    assert (~reached).any()
+    kr = k.abs().amax(dim=(1, 3)).cpu().numpy()
+    assert (kr[~reached] == 0.0).all()
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("eps", [0.0, 1e-2])
+def test_sweep_bwd_views_kernel_is_k3_summed_bit_for_bit(card, precision,
+                                                          eps):
+    """Over a 4-view batch the backward kernel's gradient is the per-view
+    gradients summed in view order, bit for bit, in every tier, at eps 0
+    and where rays terminate; two calls are bit-identical."""
+    reverse, (grid_sc, *rest) = _views_args(card, 1)
+    grid_sc = grid_sc.clone()
+    if eps:
+        grid_sc[:, 0] += 0.6
+    args = (grid_sc, *rest)
+    kw = dict(reverse=reverse, sigma_scale=1.3, early_stop_eps=eps,
+              precision=precision)
+    rgb, t = ksweep.sweep_fwd(*args, views=4, **kw)
+    assert eps == 0.0 or int((t < eps).sum()) > 0
+    d_rgb, d_t = _cotangents(card, args, 12)
+    k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, views=4, **kw)
+    assert torch.equal(k, kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, views=4,
+                                         **kw))
+    v_pv = t.shape[0] // 4
+    total = None
+    for w in range(4):
+        sl = slice(w * v_pv, (w + 1) * v_pv)
+        g = kbwd.sweep_bwd(*_per_view(args, 4, w), rgb[:, sl], t[sl],
+                           d_rgb[:, sl], d_t[sl], **kw)
+        total = g if total is None else total + g
+    assert torch.equal(k + 0.0, total + 0.0)

@@ -249,7 +249,8 @@ def test_sweep_op_refuses_later_slices(kw, match):
 
 
 def test_slab_slices_bounds_the_buffer():
-    assert tsweep_bwd.slab_slices(256, 256, 256) == 64
-    assert tsweep_bwd.slab_slices(256, 512, 512) == 16
+    assert tsweep_bwd.slab_slices(256, 2048, 256) == 16  # c4 minibatch
+    assert tsweep_bwd.slab_slices(256, 256, 256) == 128
+    assert tsweep_bwd.slab_slices(256, 512, 512) == 32
     assert tsweep_bwd.slab_slices(8, 4, 4) == 8
     assert tsweep_bwd.slab_slices(256, 8192, 8192) == 1

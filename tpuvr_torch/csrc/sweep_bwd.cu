@@ -18,29 +18,34 @@
 //   T  *= att
 //
 // On the card the transposed resample A^T dS B^T would scatter each ray's
-// 2x2 taps into the slice. To stay deterministic it runs in two stages per
-// slab of slices, both launched from the C entry, over the stacked batch
-// (Vt = views * Vp rays per column):
+// 2x2 taps into the slice. To stay deterministic it is a gather, planned
+// once per call and run in two stages per slab of slices, over the stacked
+// batch (Vt = views * Vp rays per column):
+//   plan: one thread per (slice, view, voxel line) finds exactly the rays
+//       whose tent can be non-zero on that voxel row or column (line_rays:
+//       rays_reaching's band, cut to the planes' rows [row0, row0 + Vp),
+//       trimmed by bisection to the rays with floor(pos) in {c - 1, c}) and
+//       their first weights, with the forward's exact f32 position formula,
+//       so the weights equal the forward's bit for bit;
 //   (a) one thread per stacked ray (blockIdx.z is its view, as in
 //       sweep_fwd.cu) re-marches the slab with the forward's arithmetic
 //       (tent.cuh) from the carry (T, q), and writes the cotangent samples
-//       dS (slab, Vt, U) as float4, one per ray and step;
-//   (b) one thread per voxel (k, y, x) loops over the views in order. For
-//       view w it finds the rays of that view whose taps reach the voxel by
-//       solving |v*ay + by - y| < 1 for v with w's scalars (widened by one
-//       ray, and cut to the planes' rows [row0, row0 + Vp)), computes
-//       each candidate's weight with the forward's exact f32 position
-//       formula, so the weights equal the forward's bit for bit,
-//       and gathers the row stage (over v) before the column stage (over
-//       u), in the tier's arithmetic, as in the plain twin. The view
-//       partials are added in f32 and the voxel's gradient is written once:
-//       no atomics, the same bits on every run, and the sum of the
-//       single-view gradients in view order bit for bit (up to the sign of
-//       a zero); with SP the density sum is multiplied by sigmoid(raw) once.
-// The carry lets the slab be any length, so the dS buffer is slab x Vt x U
-// float4 rather than S x Vt x U; the caller sizes it within 64 MB (8 slices
-// at the c4 minibatch). With SP (fused softplus) the density taps are
-// softplus'd in (a).
+//       dS (slab, Vt, U) as float4, one per ray and step inside the
+//       support of an enabled slice (the only ones stage (b) reads);
+//   (b) one thread per voxel (k, y, x) walks the views in order and, for
+//       each ray column u of its column's plan (ascending), gathers the row
+//       stage over the rays v of its row's plan (ascending) from dS, then
+//       the column stage, in the tier's arithmetic, as in the plain twin,
+//       skipping zero weights. A voxel no ray reaches (most of a rank's row
+//       tile) finds empty plans and only writes its zero. The view partials
+//       are added in f32 and the voxel's gradient is written once: no
+//       atomics, the same bits on every run, and the sum of the single-view
+//       gradients in view order bit for bit (up to the sign of a zero);
+//       with SP the density sum is multiplied by sigmoid(raw) once.
+// Stage (b) of a slab runs on a second stream beside stage (a) of the next
+// slab, into the other of two dS buffers. The carry lets the slab be any
+// length (the caller sizes it, kernels/sweep_bwd.py). With SP (fused
+// softplus) the density taps are softplus'd in (a).
 //
 // Early ray termination mirrors sweep_fwd.cu: with eps > 0 a ray gets zero
 // gradient on every step after its own T < eps (the plain twin, like the
@@ -50,12 +55,15 @@
 // and one gradient write, 2 x 268 MB at 256^3, about 0.16 ms; at the c4
 // minibatch (8 views at 256^2) 134 M ray-slices x about 110 flops is about
 // 0.22 ms, so a batch is bound by operations. What this form moves: stage
-// (a) requests 16 taps x 4 B per ray-step as the forward does, and stage
-// (b) reads about (2/|a| + 2)^2 float4 cotangents per voxel and view
-// through L2 (the dS buffer of a slab stays in the 50 MB L2 only at small
-// images); what a batch saves over one call per view is the extra
-// gradient writes and their sum.
+// (a) requests 16 taps x 4 B per ray-step as the forward does and writes
+// 16 B of dS per ray-step; stage (b) reads the dS its voxels' plans name
+// (each sample about once per voxel its tent reaches, mostly from L1) and
+// writes each voxel's gradient once. No voxel works out its own candidate
+// rays and weights (two divisions and about 30 weights per voxel and view):
+// the plan does, once per voxel line.
 #include <cuda_runtime.h>
+
+#include <mutex>
 
 #include "tent.cuh"
 
@@ -110,15 +118,19 @@ bwd_rays_kernel(const float* __restrict__ grid,   // (S, 4, Y, X)
   float qq = q[ray];
 
   for (int j = 0; j < n_k; ++j) {
-    float4 out = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float pos_y = __fadd_rn(__fmul_rn(fv, ay[j]), by[j]);
     const float pos_x = __fadd_rn(__fmul_rn(fu, ax[j]), bx[j]);
     // A step the forward skipped (terminated ray, disabled slice, or a
     // position outside the tents' support) gets zero gradient and leaves
-    // the carry as it was.
-    if (!(eps > 0.0f && t < eps) && en[j] != 0.0f && pos_y > -1.0f &&
-        pos_y < static_cast<float>(Y) && pos_x > -1.0f &&
-        pos_x < static_cast<float>(X)) {
+    // the carry as it was. Stage (b) reads dS only where a voxel's tent
+    // weight is non-zero, which is inside the support of an enabled
+    // slice: a step outside it writes nothing.
+    if (en[j] == 0.0f || !(pos_y > -1.0f && pos_y < static_cast<float>(Y) &&
+                           pos_x > -1.0f && pos_x < static_cast<float>(X))) {
+      continue;
+    }
+    float4 out = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (!(eps > 0.0f && t < eps)) {
       const int k = k0 + j;
       const Taps ty = tent_taps(pos_y, Y);
       const Taps tx = tent_taps(pos_x, X);
@@ -150,56 +162,179 @@ bwd_rays_kernel(const float* __restrict__ grid,   // (S, 4, Y, X)
   q[ray] = qq;
 }
 
-// At 'highest' the voxel stage is held to 32 registers, so that 8 blocks
-// stay resident per SM to hide its L2 gathers; the split tiers need more.
+// The plan: for every (slice, view, voxel line) the rays whose tent can be
+// non-zero there and their first kW weights (a line reached by more rays
+// computes the rest where it uses them); rows first, then columns.
+constexpr int kW = 4;
+constexpr int kPlanThreads = 256;
+// Stage (b)'s block: 8 voxel rows x 32 voxel columns of one slice.
+constexpr int kTileX = 32;
+constexpr int kTileY = 8;
+constexpr int kViews = 8;  // views whose plans a block holds at once
+
+// floor(pos) of ray i, times s = +-1 so that it never falls along the rays.
+__device__ __forceinline__ float ray_key(int i, float a, float b, float s) {
+  return s * floorf(__fadd_rn(__fmul_rn(static_cast<float>(i), a), b));
+}
+
+// The first ray of [lo, hi] whose key is >= t (hi + 1 if none), by
+// bisection: the positions are monotone in the ray index.
+__device__ __forceinline__ int first_key(int lo, int hi, float a, float b,
+                                         float s, float t) {
+  int h = hi + 1;
+  while (lo < h) {
+    const int m = (lo + h) >> 1;
+    if (ray_key(m, a, b, s) >= t) {
+      h = m;
+    } else {
+      lo = m + 1;
+    }
+  }
+  return lo;
+}
+
+// The rays whose tent can be non-zero at voxel line c, as (first, count):
+// rays_reaching's band of n rays, cut below at cut_lo, trimmed to the rays
+// with floor(pos) in {c - 1, c} (every other ray's tent_weight at c is 0).
+// They are consecutive, in ascending ray order.
+// tpuvr_torch/kernels/sweep_bwd.py mirrors it (line_rays).
+__device__ __forceinline__ int2 line_rays(int c, float a, float b, int n,
+                                          int cut_lo) {
+  int lo, hi;
+  rays_reaching(c, a, b, n, &lo, &hi);
+  lo = max(lo, cut_lo);
+  if (lo > hi) return make_int2(0, 0);
+  const float s = a < 0.0f ? -1.0f : 1.0f;
+  const float t = s > 0.0f ? static_cast<float>(c - 1)
+                           : -static_cast<float>(c);
+  const int first = first_key(lo, hi, a, b, s, t);
+  return make_int2(first, first_key(first, hi, a, b, s, t + 2.0f) - first);
+}
+
+// One thread per (slice, view, voxel line): its rays and their weights.
+__global__ void __launch_bounds__(kPlanThreads)
+bwd_plan_kernel(const float* __restrict__ scal,  // (views, 5, S)
+                int2* __restrict__ lines,        // (S, views, Y + X)
+                float4* __restrict__ weights,    // (S, views, Y + X)
+                int S, int Y, int X, int Vp, int U, int views, int row0) {
+  const int line = blockIdx.x * kPlanThreads + threadIdx.x;
+  if (line >= Y + X) return;
+  const int w = blockIdx.y, k = blockIdx.z;
+  const float* sw = scal + static_cast<size_t>(w) * 5 * S;
+  const bool row = line < Y;
+  const int c = row ? line : line - Y;
+  const float a = sw[(row ? 0 : 2) * S + k], b = sw[(row ? 1 : 3) * S + k];
+  int2 r = make_int2(0, 0);
+  if (sw[4 * S + k] != 0.0f) {
+    r = row ? line_rays(c, a, b, row0 + Vp, row0) : line_rays(c, a, b, U, 0);
+  }
+  float wt[kW];
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    wt[i] = i < r.y ? tent_weight(r.x + i, a, b, c) : 0.0f;
+  }
+  const size_t at = (static_cast<size_t>(k) * views + w) * (Y + X) + line;
+  lines[at] = r;
+  weights[at] = make_float4(wt[0], wt[1], wt[2], wt[3]);
+}
+
+// Weight i of a line: from its plan entry while i < kW, else computed from
+// the line's scalars sw[ia], sw[ib].
+__device__ __forceinline__ float line_weight(float4 wt, int i, int first,
+                                             const float* sw, int ia, int ib,
+                                             int c) {
+  if (i >= kW) return tent_weight(first + i, sw[ia], sw[ib], c);
+  return i == 0 ? wt.x : i == 1 ? wt.y : i == 2 ? wt.z : wt.w;
+}
+
+// One thread per voxel (k, y, x) of an 8 x 32 tile: the block first loads
+// its voxel lines' plans for a batch of up to kViews views into shared
+// memory; then each thread walks the views in order and, for each ray
+// column u reaching x (ascending), takes the row stage over the rays v
+// reaching y (ascending), then the column stage.
 template <int P, bool SP>
-__global__ void __launch_bounds__(kBlockU * kBlockV, P == kHighest ? 8 : 1)
-bwd_voxels_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
-                  const float* __restrict__ scal,  // (views, 5, S)
-                  const float4* __restrict__ ds,   // (n_k, Vt, U)
-                  float* __restrict__ grad,        // (S, 4, Y, X)
-                  int k0, int S, int Y, int X, int Vp, int U, int views,
-                  int row0, int reverse) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(kTileX * kTileY)
+bwd_tiles_kernel(const float* __restrict__ grid,     // (S, 4, Y, X)
+                 const float* __restrict__ scal,     // (views, 5, S)
+                 const float4* __restrict__ ds,      // (n_k, Vt, U)
+                 const int2* __restrict__ lines,     // (S, views, Y + X)
+                 const float4* __restrict__ weights,  // (S, views, Y + X)
+                 float* __restrict__ grad,           // (S, 4, Y, X)
+                 int k0, int S, int Y, int X, int Vp, int U, int views,
+                 int row0, int reverse) {
+  __shared__ int2 yr[kViews][kTileY];
+  __shared__ int2 xr[kViews][kTileX];
+  __shared__ float4 yw[kViews][kTileY];
+  __shared__ float4 xw[kViews][kTileX];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kTileX + tx;
+  const int x0 = blockIdx.x * kTileX, y0 = blockIdx.y * kTileY;
+  const int x = x0 + tx, y = y0 + ty;
   const int j = blockIdx.z;
-  if (x >= X || y >= Y) return;
   const int k = k0 + j;
-  const size_t plane = static_cast<size_t>(Y) * X;
   const size_t view_rays = static_cast<size_t>(Vp) * U;
-  const size_t at = static_cast<size_t>(reverse ? S - 1 - k : k) * 4 * plane +
-                    static_cast<size_t>(y) * X + x;
   float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int w = 0; w < views; ++w) {
-    const float* sw = scal + static_cast<size_t>(w) * 5 * S;
-    const float ay = sw[k], by = sw[S + k], ax = sw[2 * S + k],
-                bx = sw[3 * S + k], en = sw[4 * S + k];
-    if (en == 0.0f) continue;
-    int v_lo, v_hi, u_lo, u_hi;
-    rays_reaching(y, ay, by, row0 + Vp, &v_lo, &v_hi);
-    v_lo = max(v_lo, row0);
-    rays_reaching(x, ax, bx, U, &u_lo, &u_hi);
-    const float4* dsw = ds + (static_cast<size_t>(j) * views + w) * view_rays;
-    Acc<P> acc[4];
-    for (int u = u_lo; u <= u_hi; ++u) {
-      const float bw = tent_weight(u, ax, bx, x);
-      if (bw == 0.0f) continue;
-      Acc<P> row[4];
-      for (int v = v_lo; v <= v_hi; ++v) {
-        const float aw = tent_weight(v, ay, by, y);
-        if (aw == 0.0f) continue;
-        const float4 d = dsw[static_cast<size_t>(v - row0) * U + u];
-        row[0].add(aw, d.x);
-        row[1].add(aw, d.y);
-        row[2].add(aw, d.z);
-        row[3].add(aw, d.w);
+  for (int wb = 0; wb < views; wb += kViews) {
+    const int nb = min(kViews, views - wb);
+    if (wb > 0) __syncthreads();  // the previous batch's plans are done
+    for (int it = tid; it < nb * (kTileY + kTileX);
+         it += kTileX * kTileY) {
+      const int w = it / (kTileY + kTileX), line = it % (kTileY + kTileX);
+      const bool row = line < kTileY;
+      const int c = row ? y0 + line : x0 + line - kTileY;
+      int2 r = make_int2(0, 0);
+      float4 wt = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (c < (row ? Y : X)) {
+        const size_t at = (static_cast<size_t>(k) * views + wb + w) *
+                              (Y + X) + (row ? c : Y + c);
+        r = lines[at];
+        wt = weights[at];
+      }
+      if (row) {
+        yr[w][line] = r;
+        yw[w][line] = wt;
+      } else {
+        xr[w][line - kTileY] = r;
+        xw[w][line - kTileY] = wt;
+      }
+    }
+    __syncthreads();
+    if (x >= X || y >= Y) continue;
+    for (int w = 0; w < nb; ++w) {
+      const int2 rx = xr[w][tx], ry = yr[w][ty];
+      if (rx.y == 0 || ry.y == 0) continue;
+      const float4 wx = xw[w][tx], wy = yw[w][ty];
+      const float* sw = scal + static_cast<size_t>(wb + w) * 5 * S;
+      const float4* dsw =
+          ds + (static_cast<size_t>(j) * views + wb + w) * view_rays +
+          static_cast<size_t>(ry.x - row0) * U;
+      Acc<P> acc[4];
+      for (int i = 0; i < rx.y; ++i) {
+        const int u = rx.x + i;
+        const float bw = line_weight(wx, i, rx.x, sw, 2 * S + k, 3 * S + k,
+                                     x);
+        if (bw == 0.0f) continue;
+        Acc<P> row[4];
+        for (int n = 0; n < ry.y; ++n) {
+          const float aw = line_weight(wy, n, ry.x, sw, k, S + k, y);
+          if (aw == 0.0f) continue;
+          const float4 d = dsw[static_cast<size_t>(n) * U + u];
+          row[0].add(aw, d.x);
+          row[1].add(aw, d.y);
+          row[2].add(aw, d.z);
+          row[3].add(aw, d.w);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[c].add(row[c].value(), bw);
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[c].add(row[c].value(), bw);
+      for (int c = 0; c < 4; ++c) sum[c] = __fadd_rn(sum[c], acc[c].value());
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sum[c] = __fadd_rn(sum[c], acc[c].value());
   }
+  if (x >= X || y >= Y) return;
+  const size_t plane = static_cast<size_t>(Y) * X;
+  const size_t at = static_cast<size_t>(reverse ? S - 1 - k : k) * 4 * plane +
+                    static_cast<size_t>(y) * X + x;
   float g0 = sum[0];
   if (SP) g0 = __fmul_rn(g0, sigmoid(grid[at]));
   grad[at] = g0;
@@ -208,6 +343,41 @@ bwd_voxels_kernel(const float* __restrict__ grid,  // (S, 4, Y, X)
   grad[at + 3 * plane] = sum[3];
 }
 
+// The second stream and the events that let one slab's stage (a) run
+// beside the previous slab's stage (b), one set per device, made on first
+// use (one host thread at a time per device).
+struct Pipe {
+  cudaStream_t side;
+  cudaEvent_t rays_done, tiles_done[2];
+  cudaError_t err;
+};
+constexpr int kMaxDevices = 64;
+
+cudaError_t device_pipe(Pipe** out) {
+  static Pipe pipes[kMaxDevices];
+  static std::once_flag once[kMaxDevices];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  Pipe& p = pipes[dev];
+  std::call_once(once[dev], [&p] {
+    p.err = cudaStreamCreateWithFlags(&p.side, cudaStreamNonBlocking);
+    if (p.err == cudaSuccess) {
+      p.err = cudaEventCreateWithFlags(&p.rays_done, cudaEventDisableTiming);
+    }
+    for (int b = 0; b < 2 && p.err == cudaSuccess; ++b) {
+      p.err = cudaEventCreateWithFlags(&p.tiles_done[b],
+                                       cudaEventDisableTiming);
+    }
+  });
+  *out = &p;
+  return p.err;
+}
+
+// The plan first; then slab g's stage (a) on `stream` into dS buffer g % 2
+// once stage (b) of slab g - 2 has read it, and its stage (b) on the side
+// stream after it. `stream` waits for the last stage (b).
 template <int P, bool SP>
 cudaError_t run(const float* grid, const float* scal, const float* dt,
                 const float* dbias, const float* dc, const float* trans0,
@@ -215,32 +385,60 @@ cudaError_t run(const float* grid, const float* scal, const float* dt,
                 float4* ds, int slab, int S, int Y, int X, int Vp, int U,
                 int views, int row0, int reverse, float sigma_scale,
                 float eps, cudaStream_t stream) {
-  const size_t vu = static_cast<size_t>(views) * Vp * U * sizeof(float);
-  cudaError_t err = cudaMemcpyAsync(trans, trans0, vu,
-                                    cudaMemcpyDeviceToDevice, stream);
+  Pipe* pipe;
+  cudaError_t err = device_pipe(&pipe);
   if (err != cudaSuccess) return err;
-  err = cudaMemcpyAsync(q, q0, vu, cudaMemcpyDeviceToDevice, stream);
+  const size_t vu = static_cast<size_t>(views) * Vp * U;
+  const int n_buf = S > slab ? 2 : 1;
+  float4* weights = ds + n_buf * slab * vu;
+  int2* lines = reinterpret_cast<int2*>(
+      weights + static_cast<size_t>(S) * views * (Y + X));
+  err = cudaMemcpyAsync(trans, trans0, vu * sizeof(float),
+                        cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaMemcpyAsync(q, q0, vu * sizeof(float), cudaMemcpyDeviceToDevice,
+                        stream);
+  if (err != cudaSuccess) return err;
+  bwd_plan_kernel<<<dim3((Y + X + kPlanThreads - 1) / kPlanThreads, views,
+                         S),
+                    kPlanThreads, 0, stream>>>(scal, lines, weights, S, Y, X,
+                                               Vp, U, views, row0);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 block(kBlockU, kBlockV);
   const dim3 ray_blocks((U + kBlockU - 1) / kBlockU,
                         (Vp + kBlockV - 1) / kBlockV, views);
-  for (int k0 = 0; k0 < S; k0 += slab) {
+  const dim3 tile_block(kTileX, kTileY);
+  int g = 0;
+  for (int k0 = 0; k0 < S; k0 += slab, ++g) {
     const int n_k = S - k0 < slab ? S - k0 : slab;
+    float4* dsb = ds + static_cast<size_t>(g & 1) * slab * vu;
+    if (g >= 2) {
+      err = cudaStreamWaitEvent(stream, pipe->tiles_done[g & 1], 0);
+      if (err != cudaSuccess) return err;
+    }
     bwd_rays_kernel<P, SP><<<ray_blocks, block,
                              5 * static_cast<size_t>(n_k) * sizeof(float),
-                             stream>>>(grid, scal, dt, dbias, dc, trans, q, ds,
-                                       k0, n_k, S, Y, X, Vp, U, views, row0,
-                                       reverse, sigma_scale, eps);
+                             stream>>>(grid, scal, dt, dbias, dc, trans, q,
+                                       dsb, k0, n_k, S, Y, X, Vp, U, views,
+                                       row0, reverse, sigma_scale, eps);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const dim3 voxel_blocks((X + kBlockU - 1) / kBlockU,
-                            (Y + kBlockV - 1) / kBlockV, n_k);
-    bwd_voxels_kernel<P, SP><<<voxel_blocks, block, 0, stream>>>(
-        grid, scal, ds, grad, k0, S, Y, X, Vp, U, views, row0, reverse);
+    err = cudaEventRecord(pipe->rays_done, stream);
+    if (err != cudaSuccess) return err;
+    err = cudaStreamWaitEvent(pipe->side, pipe->rays_done, 0);
+    if (err != cudaSuccess) return err;
+    const dim3 tiles((X + kTileX - 1) / kTileX, (Y + kTileY - 1) / kTileY,
+                     n_k);
+    bwd_tiles_kernel<P, SP><<<tiles, tile_block, 0, pipe->side>>>(
+        grid, scal, dsb, lines, weights, grad, k0, S, Y, X, Vp, U, views,
+        row0, reverse);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = cudaEventRecord(pipe->tiles_done[g & 1], pipe->side);
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  return cudaStreamWaitEvent(stream, pipe->tiles_done[(g - 1) & 1], 0);
 }
 
 template <bool SP>
@@ -272,13 +470,17 @@ cudaError_t dispatch(int precision, const float* grid, const float* scal,
 }  // namespace
 }  // namespace tpuvr
 
-// C entry: the whole backward on `stream`, two launches per slab of `slab`
-// slices (after copying the carry in). `scal` is (views, 5, S); the ray
-// planes stack `views` planes of Vp rows (views = 1: one view), rows
-// [row0, row0 + Vp) of each view's intermediate image (0: the whole image;
-// see sweep_fwd.cu); `ds` is caller-allocated scratch of slab * views * Vp *
-// U float4. Allocates nothing, does not synchronise; returns the first CUDA
-// error (0 on success).
+// C entry: the whole backward, ordered on `stream` (after copying the carry
+// in): the plan, then two launches per slab of `slab` slices, the second on
+// a side stream that `stream` waits for at the end. `scal` is (views, 5,
+// S); the ray planes stack `views` planes of Vp rows (views = 1: one view),
+// rows [row0, row0 + Vp) of each view's intermediate image (0: the whole
+// image; see sweep_fwd.cu). `ds` is caller-allocated scratch
+// (scratch_floats in kernels/sweep_bwd.py): two dS buffers of slab * views * Vp * U float4
+// (one when S <= slab), then the plan's S * views * (Y + X) float4 weights
+// and int2 ray ranges. Allocates nothing but the side stream and its events
+// (once per device), does not synchronise; returns the first CUDA error (0
+// on success).
 extern "C" int tpuvr_sweep_bwd(const float* grid, const float* scal,
                                const float* dt, const float* dbias,
                                const float* dc, const float* trans0,

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, object] = {}
 
 
 def nvcc() -> str:
@@ -82,6 +85,35 @@ def build(names=SOURCES) -> dict[str, str]:
                 proc.kill()
                 proc.wait()
             tmp.unlink(missing_ok=True)
+
+
+def entry(lib: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<lib>.cu``, resolved and typed once
+    per process: ``argtypes`` and then the stream (``c_void_p``),
+    returning an int."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def launch(fn, dev, *args):
+    """Call the C entry ``fn`` with ``args`` and ``dev``'s current stream,
+    making ``dev`` current only when it is not; raises on a CUDA error.
+    The raw stream and the current device come from PyTorch's C bindings,
+    which skip building a ``torch.cuda.Stream`` at every launch."""
+    c = torch._C
+    if dev.index == c._cuda_getDevice():
+        err = fn(*args, c._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, c._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__[6:]} kernel launch failed: CUDA "
+                           f"error {err}")
 
 
 def load(name: str) -> ctypes.CDLL:

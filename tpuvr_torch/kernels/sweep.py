@@ -28,13 +28,12 @@ _MAX_SLICES = 2048  # (5, S) f32 per-slice scalars stay within 48 KB smem
 _MAX_VIEWS = 65535  # the kernels put the view on gridDim.z
 
 
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int])
+
+
 def _entry():
-    fn = _build.load("sweep_fwd").tpuvr_sweep_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.entry("sweep_fwd", "tpuvr_sweep_fwd", _ARGTYPES)
 
 
 def _check(name, t, shape, device):
@@ -125,16 +124,11 @@ def sweep_fwd(
         raise ValueError("grid_sc and dt_map must be contiguous")
     rgb = torch.empty((3, n_v, n_u), dtype=torch.float32, device=dev)
     trans = torch.empty((n_v, n_u), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _entry()(
-            grid_sc.data_ptr(), scal.data_ptr(), dt_map.data_ptr(),
-            rgb.data_ptr(), trans.data_ptr(), s, n_y, n_x, v_pv, n_u, views,
-            int(row0), int(bool(reverse)), float(sigma_scale),
-            float(early_stop_eps), PRECISIONS.index(precision),
-            int(bool(softplus)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"sweep_fwd kernel launch failed: CUDA error {err}")
+    _build.launch(
+        _entry(), dev, grid_sc.data_ptr(), scal.data_ptr(),
+        dt_map.data_ptr(), rgb.data_ptr(), trans.data_ptr(), s, n_y, n_x,
+        v_pv, n_u, views, int(row0), int(bool(reverse)), float(sigma_scale),
+        float(early_stop_eps), PRECISIONS.index(precision),
+        int(bool(softplus)))
     launches[views] += 1
     return rgb, trans

@@ -30,36 +30,16 @@ launches: collections.Counter[str] = collections.Counter()
 _SLAB, _BATCH = 32, 1024
 _SMEM_BYTES = 232448  # what one block may use on sm_90
 _MAX_TILES = 65535
-_ENTRIES = {"tpuvr_warp_rows_fwd": 5, "tpuvr_warp_rows_bwd": 7}  # pointers
-_fns = {}
-
-
-def _entry(name):
-    """The C entry ``name``, resolved and typed once per process."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("warp_rows"), name)
-        fn.argtypes = ([ctypes.c_void_p] * _ENTRIES[name]
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return fn
+# The C entries' argument types before the stream: pointers, then ints.
+_ARGTYPES = {name: [ctypes.c_void_p] * n + [ctypes.c_int] * 6
+             for name, n in (("tpuvr_warp_rows_fwd", 5),
+                             ("tpuvr_warp_rows_bwd", 7))}
 
 
 def _launch(name, dev, *args):
-    """Launch ``name`` on ``dev``'s current stream (making ``dev`` current
-    only when it is not); raises on a CUDA error. The raw stream and the
-    current device come from PyTorch's C bindings, which skip building a
-    ``torch.cuda.Stream`` at every launch."""
-    c = torch._C
-    if dev.index == c._cuda_getDevice():
-        err = _entry(name)(*args, c._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = _entry(name)(*args, c._cuda_getCurrentRawStream(dev.index))
-    if err != 0:
-        raise RuntimeError(f"{name[6:]} kernel launch failed: CUDA error "
-                           f"{err}")
+    """Launch the C entry ``name`` on ``dev``'s current stream."""
+    _build.launch(_build.entry("warp_rows", name, _ARGTYPES[name]), dev,
+                  *args)
 
 
 def _bwd_smem_bytes(n_c: int, f_v: int) -> int:
