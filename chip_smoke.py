@@ -53,7 +53,11 @@ the build and the backward sweep's checks and times alone (K6 at the c4
 minibatch, also on a rank's row tiles and at other slab heights, K3 at
 the c4 view, c2 and the headline), with each stage's device time and a
 SHA-256 digest of each gradient, for holding a redesign bit for bit
-against its parent in one call.
+against its parent in one call. ``--phase fwd`` does the same for the
+forward sweep (K1 at c1, c2, c3's geometry, the headline and a c4 view;
+K5 at the c4 minibatch, also with softplus, at eps 1e-2 and on a rank's
+row tiles): SHA-256 digests of rgb and T, interleaved CUDA-event times,
+device times, bounds and per-tile window counts.
 """
 
 from __future__ import annotations
@@ -233,38 +237,61 @@ def per_ray_sweep_fwd(grid_sc, coeffs, enables, dt_map, *, reverse=False,
     return rgb, trans
 
 
-def sweep_work(args):
+def support_samples(args, row0=0):
+    """Ray-slices of enabled slices whose two positions lie in the tents'
+    support (-1, n), with the kernels' f32 position formula (a product,
+    then a sum): the samples that need work (the others read only zero
+    taps). The coefficients and enables are (S,) for one view or (views,
+    S) for a view batch; the rays are rows [row0, row0 + V / views)."""
+    grid_sc, coeffs, enables, dt_map = args
+    _, _, n_y, n_x = grid_sc.shape
+    ay, by, ax, bx = (np.atleast_2d(c.detach().cpu().numpy().astype(
+        np.float32)) for c in coeffs)
+    en = np.atleast_2d(enables.detach().cpu().numpy()) != 0
+    n_v, n_u = dt_map.shape
+    v = np.arange(row0, row0 + n_v // en.shape[0], dtype=np.float32)
+    u = np.arange(n_u, dtype=np.float32)
+    py = ay[..., None] * v + by[..., None]
+    px = ax[..., None] * u + bx[..., None]
+    in_y = ((py > -1.0) & (py < n_y)).sum(-1)
+    in_x = ((px > -1.0) & (px < n_x)).sum(-1)
+    return int((en * in_y * in_x).sum())
+
+
+def sweep_work(args, row0=0):
     """(grid bytes of the slices enabled in any view, scalar bytes, ray
-    plane bytes, ray-slice samples of enabled slices) of one sweep; the
-    enables are (S,) for one view or (views, S) for a view batch."""
+    plane bytes, ray-slice samples of enabled slices, those samples inside
+    the tents' support) of one sweep; the enables are (S,) for one view or
+    (views, S) for a view batch."""
     grid_sc, coeffs, enables, dt_map = args
     s, _, n_y, n_x = grid_sc.shape
     n_v, n_u = dt_map.shape
     on = (enables > 0).reshape(-1, s)
     samples = int(on.sum()) * (n_v // on.shape[0]) * n_u
     return (int(on.any(0).sum()) * 4 * n_y * n_x * 4, 5 * on.numel() * 4,
-            n_v * n_u * 4, samples)
+            n_v * n_u * 4, samples, support_samples(args, row0))
 
 
-def sweep_fwd_bound(args):
+def sweep_fwd_bound(args, row0=0):
     """(bytes ms, operations ms): each input read once (only enabled
     slices of the grid), each output written once; SWEEP_FLOPS_PER_SAMPLE
-    per sample of an enabled slice. That is the work these inputs need
+    per sample inside the tents' support (a sample outside it reads only
+    zero taps and changes nothing). That is the work these inputs need
     when no ray terminates early."""
-    grid_b, scal_b, plane_b, samples = sweep_work(args)
+    grid_b, scal_b, plane_b, _, support = sweep_work(args, row0)
     return ((grid_b + scal_b + 5 * plane_b) / HBM_BYTES_PER_S * 1e3,
-            SWEEP_FLOPS_PER_SAMPLE * samples / F32_FLOP_PER_S * 1e3)
+            SWEEP_FLOPS_PER_SAMPLE * support / F32_FLOP_PER_S * 1e3)
 
 
-def sweep_bwd_bound(args):
+def sweep_bwd_bound(args, row0=0):
     """(bytes ms, operations ms) of one backward sweep: the grid's enabled
     slices, the scalars and 9 ray planes (dt, rgb, T, their cotangents)
     read once, the gradient written once; BWD_FLOPS_PER_SAMPLE per sample
-    of an enabled slice."""
-    grid_b, scal_b, plane_b, samples = sweep_work(args)
+    inside the tents' support."""
+    grid_b, scal_b, plane_b, _, support = sweep_work(args, row0)
     grad_b = args[0].numel() * 4
     return ((grid_b + grad_b + scal_b + 9 * plane_b) / HBM_BYTES_PER_S * 1e3,
-            BWD_FLOPS_PER_SAMPLE * samples / F32_FLOP_PER_S * 1e3)
+            BWD_FLOPS_PER_SAMPLE * support / F32_FLOP_PER_S * 1e3)
 
 
 def reset_counts():
@@ -406,10 +433,12 @@ def backward_kernels(dev):
         rgb, t = ksweep.sweep_fwd(*args, **kw)
         d_rgb, d_t = randn(3, *t.shape), randn(*t.shape)
         bytes_ms, ops_ms = sweep_bwd_bound(args)
+        ray_slices, in_support = sweep_work(args)[3:]
         out["by_config"][name] = dict(
             ms=cuda_ms(lambda: kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t,
                                               **kw), 5),
-            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bytes_ms=bytes_ms, ops_ms=ops_ms, ray_slices=ray_slices,
+            in_support=in_support,
             slab=kbwd.slab_slices(args[0].shape[0], *t.shape))
         if name == "c4":
             out["plain_ms"] = cuda_ms(lambda: sweep_bwd_torch(
@@ -677,6 +706,7 @@ def view_batch_kernels(dev):
     out["k1_view_bytes_ms"], out["k1_view_ops_ms"] = sweep_fwd_bound(
         one_view(args, 0))
     out["bwd_bytes_ms"], out["bwd_ops_ms"] = sweep_bwd_bound(args)
+    out["ray_slices"], out["in_support"] = sweep_work(args)[3:]
     log("[kernel] view batch c4 (highest): " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
         for k, v in out.items()))
@@ -876,6 +906,169 @@ def bwd_phase(dev):
         del prep, a, g
     for key, value in sorted(out["digests"].items()):
         log(f"[bwd] digest {key} {value}")
+    return out
+
+
+def fwd_phase(dev):
+    """The forward sweep alone (K1 over one view, K5 over a view batch),
+    for redesigning it: SHA-256 digests of rgb and T (for holding a change
+    bit for bit against its parent in one call), CUDA-event times taken in
+    interleaved rounds, the profiler's device time, the bound, and the
+    geometry counts and regime shares of ``kernels.sweep.window_stats``
+    where the tree has it. K1 at c1, c2, c3's orbit geometry (unlit), the
+    headline and one c4 view, at each config's settings (timed), at every
+    tier with eps 0, at eps 1e-2 and with softplus; K5 at the c4 minibatch
+    at every tier, with softplus, at eps 1e-2 (on a denser grid, where
+    rays terminate) and on a rank's quarter of the rows (row0 = 0, 64,
+    128, 192). Launches only through ``kernels.sweep.sweep_fwd``. Returns
+    the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels.sweep_torch import (
+        sweep_fwd_torch,
+        sweep_fwd_views_torch,
+    )
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ref.camera import dominant_axis
+
+    stats = getattr(ksweep, "window_stats", None)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = {"digests": {}, "cases": {}, "geometry": {}}
+    timed = {}
+
+    def raw_density(args):
+        raw = args[0].clone()
+        raw[:, 0] = torch.randn(raw[:, 0].shape, generator=gen,
+                                device=dev) * 2.0 - 1.0
+        return (raw, *args[1:])
+
+    def denser(args):
+        return (args[0] + torch.tensor([0.05, 0.0, 0.0, 0.0], device=dev)[
+            None, :, None, None], *args[1:])
+
+    def geometry(label, args, views, row0=0):
+        _, _, _, samples, support = sweep_work(args, row0)
+        geo = {"ray_slices": samples, "in_support": support}
+        if stats is not None:
+            grid_sc, coeffs, en, dt = args
+            geo.update(stats(coeffs, en, grid_sc.shape[2], grid_sc.shape[3],
+                             dt.shape[0] // views, dt.shape[1], row0))
+        out["geometry"][label] = geo
+        log(f"[fwd] geometry {label}: " + json.dumps(geo))
+
+    def run(label, args, kw, plain=None, tol=0.0, time_it=False):
+        call = (lambda: ksweep.sweep_fwd(*args, **kw))
+        rgb, t = call()
+        again = call()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(rgb, again[0]) and torch.equal(t, again[1]))
+        ok = same and all(bool(torch.isfinite(x).all()) for x in (rgb, t))
+        line = f"[fwd] {label}: two calls bit-identical {same}"
+        if plain is not None:
+            err = max_err((rgb, t), plain(*args, **kw))
+            line += f", max abs err {err:.3e} against plain (tol {tol:.1e})"
+            ok = ok and err <= tol
+        out["digests"][label] = [digest(rgb), digest(t)]
+        log(line)
+        check(ok, f"sweep_fwd {label}")
+        if time_it:
+            timed[label] = (call, args, kw.get("row0", 0))
+        del rgb, t, again
+
+    # K1 at the render configs' geometry and at one c4 view.
+    n_big = configs.CONFIGS["headline"]["grid_n"]
+    grid256 = smoke_sphere(n_big, device=dev)
+    for name in ("c1", "c2", "c3", "headline"):
+        cfg = configs.CONFIGS[name]
+        run_cfg = cfg["render"]
+        grid = (grid256 if cfg["grid_n"] == n_big
+                else smoke_sphere(cfg["grid_n"], device=dev))
+        cam = configs.camera(cfg)
+        prep = render.prepare_grid(grid, axes=(dominant_axis(cam),),
+                                   device=dev)
+        plan, _, args = render.sweep_inputs(prep, cam, run_cfg, dev)
+        del prep
+        geometry(f"k1_{name}", args, 1)
+        base = dict(reverse=plan.reverse, sigma_scale=run_cfg.sigma_scale)
+        cmax = float(args[0][:, 1:].abs().max())
+        eps = run_cfg.early_stop_eps
+        run(f"k1_{name}_{run_cfg.precision}_eps{eps:g}", args,
+            dict(base, precision=run_cfg.precision, early_stop_eps=eps),
+            plain=sweep_fwd_torch, tol=1e-5 + eps * max(cmax, 1.0),
+            time_it=True)
+        for prec in ("highest", "high", "default"):
+            if (prec, 0.0) != (run_cfg.precision, eps):
+                run(f"k1_{name}_{prec}_eps0", args,
+                    dict(base, precision=prec, early_stop_eps=0.0))
+        run(f"k1_{name}_highest_eps1e-2", denser(args),
+            dict(base, precision="highest", early_stop_eps=1e-2))
+        run(f"k1_{name}_highest_softplus", raw_density(args),
+            dict(base, precision="highest", early_stop_eps=0.0,
+                 softplus=True))
+        del args
+    del grid256, grid
+
+    # K1 at one c4 view and K5 at the c4 minibatch.
+    reverse, views, args = c4_minibatch(dev)
+    v_pv = args[3].shape[0] // views
+    view0 = (args[0], tuple(c[0] for c in args[1]), args[2][0],
+             args[3][:v_pv])
+    base = dict(reverse=reverse, sigma_scale=1.0)
+    geometry("k1_c4_view", view0, 1)
+    run("k1_c4_view_highest_eps0", view0,
+        dict(base, precision="highest", early_stop_eps=0.0),
+        plain=sweep_fwd_torch, tol=1e-5, time_it=True)
+    for prec in ("high", "default"):
+        run(f"k1_c4_view_{prec}_eps0", view0,
+            dict(base, precision=prec, early_stop_eps=0.0))
+    geometry("k5_c4", args, views)
+    kw5 = dict(base, views=views, early_stop_eps=0.0)
+    run("k5_c4_highest_eps0", args, dict(kw5, precision="highest"),
+        plain=sweep_fwd_views_torch, tol=1e-5, time_it=True)
+    for prec in ("high", "default"):
+        run(f"k5_c4_{prec}_eps0", args, dict(kw5, precision=prec),
+            time_it=True)
+    raw = raw_density(args)
+    for prec in ("highest", "default"):
+        run(f"k5_c4_{prec}_softplus", raw,
+            dict(kw5, precision=prec, softplus=True), time_it=True)
+    del raw
+    dense = denser(args)
+    for prec in ("highest", "default"):
+        run(f"k5_c4_{prec}_eps1e-2", dense,
+            dict(kw5, precision=prec, early_stop_eps=1e-2),
+            time_it=prec == "highest")
+    del dense
+    n_tiles = 4
+    v_l = v_pv // n_tiles
+    for r in range(n_tiles):
+        dt = args[3].unflatten(0, (views, v_pv))[
+            :, r * v_l:(r + 1) * v_l].flatten(0, 1).contiguous()
+        tile = (*args[:3], dt)
+        geometry(f"k5_c4_rows{r * v_l}", tile, views, r * v_l)
+        for prec in ("highest", "default"):
+            run(f"k5_c4_rows{r * v_l}_{prec}", tile,
+                dict(kw5, precision=prec, row0=r * v_l),
+                time_it=prec == "highest")
+
+    # Times: every timed case in each of 5 rounds (CUDA events), then the
+    # profiler's device time; the bound from the case's own inputs.
+    ms = interleaved_ms({k: v[0] for k, v in timed.items()}, 10)
+    for label, (call, a, row0) in timed.items():
+        dev_ms, top, _ = device_ms(call, 5)
+        bytes_ms, ops_ms = sweep_fwd_bound(a, row0)
+        out["cases"][label] = {
+            "ms": ms[label], "device_ms": dev_ms, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        log(f"[fwd] {label}: {ms[label]:.4f} ms (events, median of 5 "
+            f"rounds); device " + ("not measured" if dev_ms is None else
+                                   f"{dev_ms:.4f} ms") +
+            f"; bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+            f"operations {ops_ms:.4f})")
+    for key, value in sorted(out["digests"].items()):
+        log(f"[fwd] digest {key} rgb {value[0]} T {value[1]}")
     return out
 
 
@@ -1458,7 +1651,7 @@ def dist_rank(steps, run_root, reps):
             ("library_ms", lambda: dinit.all_reduce(k6(), mesh))):
         tdist.barrier()
         b11[name] = cuda_ms(fn, reps)
-    b11["k6_bytes_ms"], b11["k6_ops_ms"] = sweep_bwd_bound(tile)
+    b11["k6_bytes_ms"], b11["k6_ops_ms"] = sweep_bwd_bound(tile, row0)
     b11["grad_bytes"] = ref.numel() * 4
     b11["shape"] = (f"c4 minibatch row tile: {views} views x "
                     f"{tile[3].shape[0] // views}x{tile[3].shape[1]} rays, "
@@ -1636,14 +1829,17 @@ def finish(t_start):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phase", choices=("all", "dist", "warp", "bwd"),
+    parser.add_argument("--phase",
+                        choices=("all", "dist", "warp", "bwd", "fwd"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
                              "alone; 'warp': build, then the row warp's "
                              "kernels (K7, K8) alone; 'bwd': build, then "
                              "the backward sweep (K6, K3) alone, with "
                              "digests of its gradients and its stages' "
-                             "times")
+                             "times; 'fwd': build, then the forward sweep "
+                             "(K1, K5) alone, with digests of its outputs, "
+                             "times and geometry")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1666,8 +1862,9 @@ def main(argv=None):
 
     # 1. Build.
     t0 = time.time()
-    logs = _build.build()
-    log(f"[build] {sorted(_build.SOURCES)} in {time.time() - t0:.1f} s")
+    logs = _build.build(("sweep_fwd",) if opts.phase == "fwd"
+                        else _build.SOURCES)
+    log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
         for line in ptxas_report(text):
             log(f"[build] {name}: {line}")
@@ -1681,6 +1878,9 @@ def main(argv=None):
         return finish(t_start)
     if opts.phase == "bwd":
         log(json.dumps({"bwd": bwd_phase(dev)}))
+        return finish(t_start)
+    if opts.phase == "fwd":
+        log(json.dumps({"fwd": fwd_phase(dev)}))
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
@@ -1751,11 +1951,13 @@ def main(argv=None):
         kw = dict(reverse=plan.reverse, early_stop_eps=run.early_stop_eps,
                   precision=run.precision, sigma_scale=run.sigma_scale)
         bytes_ms, ops_ms = sweep_fwd_bound(args)
+        ray_slices, in_support = sweep_work(args)[3:]
         t_run = outs[(run.precision, run.early_stop_eps)][1]
         sweep_ms[name] = dict(
             ms=cuda_ms(lambda: ksweep.sweep_fwd(*args, **kw), 10),
             plain_ms=cuda_ms(lambda: sweep_fwd_torch(*args, **kw), 2),
-            bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bytes_ms=bytes_ms, ops_ms=ops_ms, ray_slices=ray_slices,
+            in_support=in_support,
             library_ms=grid_sample_ms(args),
             rays_terminated=int((t_run < run.early_stop_eps).sum()))
         log(f"[kernel] sweep_fwd {name} ({run.precision}, eps "
@@ -1938,6 +2140,8 @@ def main(argv=None):
             "launches_by_path": launches_by_path["sweep_fwd"],
             "softplus_max_abs_err": bwd["softplus_fwd_err"],
             "softplus_ms_c4": bwd["softplus_fwd_ms"],
+            "ray_slices": head["ray_slices"],
+            "in_support": head["in_support"],
             "c4_view_ms": vb["fwd_loop_ms"] / vb["views"],
             "c4_view_bound": bound(vb["k1_view_bytes_ms"],
                                    vb["k1_view_ops_ms"]),
@@ -1969,6 +2173,8 @@ def main(argv=None):
             "plain_ms": bwd["plain_ms"],
             **bound(bc4["bytes_ms"], bc4["ops_ms"]),
             "library_ms": None,
+            "ray_slices": bc4["ray_slices"],
+            "in_support": bc4["in_support"],
             "shape": "c4: 256^3, first orbit view at 256^2, highest",
             "by_config": bwd["by_config"],
         },
@@ -2003,6 +2209,8 @@ def main(argv=None):
             "library_ms": None,
             "library_call": "none: no one PyTorch call computes a "
                             "view-batched sweep",
+            "ray_slices": vb["ray_slices"],
+            "in_support": vb["in_support"],
             "shape": vb["shape"] + ", highest",
         },
         {
@@ -2021,6 +2229,8 @@ def main(argv=None):
             "library_ms": None,
             "library_call": "none: no one PyTorch call computes a sweep's "
                             "gradient",
+            "ray_slices": vb["ray_slices"],
+            "in_support": vb["in_support"],
             "slab": vb["slab"],
             "shape": vb["shape"] + ", highest",
         },

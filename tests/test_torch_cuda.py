@@ -771,3 +771,170 @@ def test_sweep_bwd_views_kernel_is_k3_summed_bit_for_bit(card, precision,
                            d_rgb[:, sl], d_t[sl], **kw)
         total = g if total is None else total + g
     assert torch.equal(k + 0.0, total + 0.0)
+
+
+# The forward kernel's two regimes (csrc/sweep_fwd.cu): a tile whose slice
+# window fits the staging box stages it by TMA and shares the row stage
+# ("dense"); a wider one gathers ray by ray with the next slice's loads in
+# flight ("sparse"). Each case is held against the plain version (1e-5, or
+# eps * max|c| at eps > 0) and bit for bit over two calls; which regimes it
+# takes is read from kernels.sweep.tile_windows, the kernel's numpy twin.
+
+
+def _fwd_hold(args, views=1, **kw):
+    k = ksweep.sweep_fwd(*args, views=views, **kw)
+    again = ksweep.sweep_fwd(*args, views=views, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(k, again):
+        assert torch.equal(a, b)
+    p = (sweep_fwd_torch(*args, **kw) if views == 1
+         else sweep_fwd_views_torch(*args, views=views, **kw))
+    eps = kw.get("early_stop_eps", 0.0)
+    tol = 1e-5 + eps * max(float(args[0][:, 1:].abs().max()), 1.0)
+    for a, b in zip(k, p):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+    return k
+
+
+def _regimes(args, views=1, row0=0):
+    grid_sc, coeffs, en, dt = args
+    return ksweep.tile_windows(coeffs, en, grid_sc.shape[2],
+                               grid_sc.shape[3], dt.shape[0] // views,
+                               dt.shape[1], row0)
+
+
+def _synthetic(card, a, n=40, v=24, u=72, s=None, shift=(0.37, -0.21),
+               disabled=7, seed=5):
+    """A random (S, 4, n, n) grid swept by rays whose slope per slice is
+    ``a`` (voxels a ray; x at 0.9 a), centred on the grid, every
+    ``disabled``-th slice off."""
+    a = np.asarray(a, np.float64)
+    s = a.shape[0] if s is None else s
+    gen = torch.Generator().manual_seed(seed)
+    grid = torch.rand((s, 4, n, n), generator=gen)
+    coeffs = (a, n / 2 - a * v / 2 + shift[0], a * 0.9,
+              n / 2 - a * 0.9 * u / 2 + shift[1])
+    en = (np.arange(s) % disabled != disabled // 2).astype(np.float32)
+    dt = 1.0 + torch.rand((v, u), generator=gen)
+    return (grid.to(card),
+            tuple(torch.tensor(c, dtype=torch.float32, device=card)
+                  for c in coeffs),
+            torch.tensor(en, device=card), dt.to(card))
+
+
+@pytest.mark.parametrize("name", ["c1", "c2", "headline"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("eps", [0.0, 1e-2])
+def test_sweep_fwd_dense_regime_only(card, name, precision, eps):
+    plan, args = _sweep_args(card, name, 32, 48)
+    reg = _regimes(args)["regime"]
+    assert (reg == ksweep.DENSE).any() and not (reg == ksweep.SPARSE).any()
+    _fwd_hold(args, reverse=plan.reverse, precision=precision,
+              early_stop_eps=eps, sigma_scale=1.7)
+
+
+@pytest.mark.parametrize("n", [160, 18])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_sweep_fwd_sparse_regime_only(card, n, precision):
+    """Rays 1.6-2.2 voxels apart inside a 160-wide grid (windows wider
+    than the box), and an 18-wide grid (no multiple of 4: no TMA rows)."""
+    args = _synthetic(card, np.linspace(1.6, 2.2, 24), n=n, v=40, u=64)
+    reg = _regimes(args)["regime"]
+    assert (reg == ksweep.SPARSE).any() and not (reg == ksweep.DENSE).any()
+    _fwd_hold(args, precision=precision)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_sweep_fwd_view_crossing_the_box(card, precision, reverse):
+    """One view whose slopes rise from 0.3 to 2.0 voxels a ray: its tiles
+    take the dense regime, then the sparse one, then both."""
+    args = _synthetic(card, np.linspace(0.3, 2.0, 40))
+    reg = _regimes(args)["regime"][0]
+    assert set(np.unique(reg[0])) - {ksweep.SKIP} == {ksweep.DENSE}
+    assert ksweep.SPARSE in set(np.unique(reg[-1]))
+    _fwd_hold(args, reverse=reverse, precision=precision)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_sweep_fwd_softplus_windows_overhang_every_edge(card, precision):
+    """Raw densities of both signs; the image covers more than the grid on
+    every side, so dense windows take border cells (which must stay 0, not
+    softplus(0)) above, below, left and right of the grid."""
+    args = _raw(_synthetic(card, np.full(16, 0.6), n=40, v=96, u=96,
+                           disabled=100))
+    tw = _regimes(args)
+    dense = (tw["regime"][0] == ksweep.DENSE).any(0)  # (tiles_v, tiles_u)
+    y_lo, y_hi = tw["y_lo"][0], tw["y_lo"][0] + tw["rows"][0] - 1
+    x_lo, x_hi = tw["x_lo"][0], tw["x_lo"][0] + tw["cols"][0] - 1
+    assert (dense.any(1) & (y_lo == -1).any(0)).any()
+    assert (dense.any(1) & (y_hi == 40).any(0)).any()
+    assert (dense.any(0) & (x_lo == -1).any(0)).any()
+    assert (dense.any(0) & (x_hi == 40).any(0)).any()
+    _fwd_hold(args, precision=precision, softplus=True)
+
+
+@pytest.mark.parametrize("slope,n", [(0.5, 40), (1.8, 160)],
+                         ids=["dense", "sparse"])
+@pytest.mark.parametrize("softplus", [False, True])
+def test_sweep_fwd_blocks_stop_with_copies_issued(card, slope, n, softplus):
+    """ERT at a large eps over a dense grid that holds every ray: whole
+    blocks stop after a few slices (in the dense regime with copies of
+    later slices in flight) and must still write their rays; the card must
+    come back clean."""
+    args = _synthetic(card, np.full(20, slope), n=n, v=40, u=64)
+    args = (args[0] + torch.tensor([2.0, 0.0, 0.0, 0.0], device=card)[
+        None, :, None, None], *args[1:])
+    if softplus:
+        args = _raw(args)
+    _, t = _fwd_hold(args, early_stop_eps=0.3, softplus=softplus)
+    torch.cuda.synchronize()
+    assert bool((t < 0.3).all())
+    _fwd_hold(args, softplus=softplus)
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_sweep_fwd_row_tiles_and_views_match_k1(card, precision):
+    """A batch of 3 views crossing the box (reverse) equals K1 view by
+    view, and each quarter of its rows (row0) equals those rows of the
+    whole batch."""
+    views = 3
+    parts = [_synthetic(card, np.linspace(0.3 + 0.2 * w, 2.0, 40), seed=w)
+             for w in range(views)]
+    grid = parts[0][0]
+    coeffs = tuple(torch.stack([p[1][i] for p in parts]) for i in range(4))
+    en = torch.stack([p[2] for p in parts])
+    dt = torch.cat([p[3] for p in parts])
+    args = (grid, coeffs, en, dt)
+    kw = dict(reverse=True, precision=precision)
+    rgb, t = _fwd_hold(args, views=views, **kw)
+    v_pv = dt.shape[0] // views
+    for w in range(views):
+        one = (grid, tuple(c[w] for c in coeffs), en[w],
+               dt[w * v_pv:(w + 1) * v_pv])
+        r1, t1 = ksweep.sweep_fwd(*one, **kw)
+        assert torch.equal(r1, rgb[:, w * v_pv:(w + 1) * v_pv])
+        assert torch.equal(t1, t[w * v_pv:(w + 1) * v_pv])
+    q = v_pv // 4
+    for r in range(4):
+        rows = dt.unflatten(0, (views, v_pv))[:, r * q:(r + 1) * q]
+        tile = (grid, coeffs, en, rows.flatten(0, 1).contiguous())
+        rt, tt = _fwd_hold(tile, views=views, row0=r * q, **kw)
+        whole = (rgb.unflatten(1, (views, v_pv))[:, :, r * q:(r + 1) * q],
+                 t.unflatten(0, (views, v_pv))[:, r * q:(r + 1) * q])
+        assert torch.equal(rt, whole[0].flatten(1, 2))
+        assert torch.equal(tt, whole[1].flatten(0, 1))
+
+
+@pytest.mark.parametrize("b", [(7.3, -0.6), (-0.5, 39.5), (50.0, 3.0)])
+def test_sweep_fwd_degenerate_coefficients(card, b):
+    """a = 0: every ray of a slice on one line (inside, on the border, or
+    outside the grid)."""
+    s, n = 12, 40
+    gen = torch.Generator().manual_seed(1)
+    grid = torch.rand((s, 4, n, n), generator=gen).to(card)
+    zeros = torch.zeros(s, device=card)
+    coeffs = (zeros, torch.full((s,), b[0], device=card), zeros,
+              torch.full((s,), b[1], device=card))
+    dt = (1.0 + torch.rand((24, 72), generator=gen)).to(card)
+    _fwd_hold((grid, coeffs, torch.ones(s, device=card), dt))

@@ -110,6 +110,49 @@ __device__ __forceinline__ void sample_slice(const float* sl, size_t plane,
   }
 }
 
+// sample_slice in two parts, with 32-bit offsets within the slice (`plane`
+// = Y * X; the forward kernel's wrapper checks that 4 * Y * X fits an int).
+// fetch_taps loads the 16 taps, channel by channel in the order 00, 10, 01,
+// 11 (y tap, x tap), raw; a tap outside the plane reads 0 and is not
+// loaded. sample_taps then computes the four channel samples with
+// sample_slice's arithmetic, operation for operation (softplus on the
+// density taps inside the plane when SP). All 16 loads are in flight
+// before the first product: in the forward kernel at the c4 minibatch,
+// faster than sample_slice's channel-by-channel order at 'high', 'default'
+// and with softplus (1.07 against 1.35 ms with softplus), a little slower
+// at 'highest' without (PERF.md §6).
+__device__ __forceinline__ void fetch_taps(const float* sl, int plane, int X,
+                                           const Taps& ty, const Taps& tx,
+                                           float g[16]) {
+  const int o00 = ty.i0 * X + tx.i0, o10 = ty.i1 * X + tx.i0;
+  const int o01 = ty.i0 * X + tx.i1, o11 = ty.i1 * X + tx.i1;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float* ch = sl + c * plane;
+    g[4 * c + 0] = (ty.in0 && tx.in0) ? ch[o00] : 0.0f;
+    g[4 * c + 1] = (ty.in1 && tx.in0) ? ch[o10] : 0.0f;
+    g[4 * c + 2] = (ty.in0 && tx.in1) ? ch[o01] : 0.0f;
+    g[4 * c + 3] = (ty.in1 && tx.in1) ? ch[o11] : 0.0f;
+  }
+}
+
+template <int P, bool SP>
+__device__ __forceinline__ void sample_taps(const float g[16], const Taps& ty,
+                                            const Taps& tx, float smp[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const bool sp = SP && c == 0;
+    const float* h = g + 4 * c;
+    const float g00 = (ty.in0 && tx.in0) ? (sp ? softplus(h[0]) : h[0]) : 0.0f;
+    const float g10 = (ty.in1 && tx.in0) ? (sp ? softplus(h[1]) : h[1]) : 0.0f;
+    const float g01 = (ty.in0 && tx.in1) ? (sp ? softplus(h[2]) : h[2]) : 0.0f;
+    const float g11 = (ty.in1 && tx.in1) ? (sp ? softplus(h[3]) : h[3]) : 0.0f;
+    const float r0 = dot2<P>(ty.w0, g00, ty.w1, g10);
+    const float r1 = dot2<P>(ty.w0, g01, ty.w1, g11);
+    smp[c] = dot2<P>(r0, tx.w0, r1, tx.w1);
+  }
+}
+
 // d softplus / dx, chained into the raw parameters' density gradient.
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
