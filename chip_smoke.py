@@ -12,7 +12,10 @@ Phases, in order; any failure raises and exits non-zero:
      main paths' shapes (the backward sweep also against autograd of a
      per-ray-terminating plain forward at eps > 0; the sweep pair over the
      c4 minibatch, 8 views of one c4 group, also against the same kernels
-     run view by view), the row-block warp pair (K7, K8) at the c4 row plans
+     run view by view; the tau sweep and its adjoint (K2, K4) over c3's 16
+     directions in one launch each way, also at c5's 512^2 planes and, for
+     a plane too wide for their cluster route, through the plane loop),
+     the row-block warp pair (K7, K8) at the c4 row plans
      against its plain versions and grid_sample (K8 also against itself over
      two calls; each timed with CUDA events in turns with its grid_sample
      call, by the profiler, and by the host's issue time), and the whole
@@ -57,7 +60,10 @@ against its parent in one call. ``--phase fwd`` does the same for the
 forward sweep (K1 at c1, c2, c3's geometry, the headline and a c4 view;
 K5 at the c4 minibatch, also with softplus, at eps 1e-2 and on a rank's
 row tiles): SHA-256 digests of rgb and T, interleaved CUDA-event times,
-device times, bounds and per-tile window counts.
+device times, bounds and per-tile window counts. ``--phase light`` does the
+same for the light bake's tau sweep and its adjoint (K2, K4 at c3's 16
+directions, c3's prepare_grid, the lit fit's first-step gradient), also in
+a tree that has only the one-direction tau wrappers.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import inspect
 import json
 import os
 import re
@@ -301,7 +308,9 @@ def reset_counts():
     sweep.launches.clear()
     sweep_bwd.launches.clear()
     warp.launches.clear()
-    lighting.launches = lighting.adj_launches = 0
+    for counts in (lighting.launches, lighting.directions,
+                   lighting.adj_launches, lighting.adj_directions):
+        counts.clear()
     ring_bwd.launches = 0
     init.collectives.clear()
 
@@ -310,6 +319,10 @@ def read_counts():
     """Launches since reset_counts, by kernel row: the sweep kernels'
     counts (kept by view count) split into one view ("sweep_fwd",
     "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views"),
+    the tau sweep's and its adjoint's kernel launches ("tau_sweep",
+    "tau_adj": cluster launches plus the plane loop's plane launches) and
+    the directions they swept ("tau_sweep_dirs", "tau_adj_dirs"), with the
+    plane loop's share ("tau_sweep_plane_loop", "tau_adj_plane_loop"),
     the row warp's ("warp_rows_fwd", "warp_rows_bwd") and the ring
     backward's ("sweep_bwd_ring")."""
     from tpuvr_torch.kernels import lighting, ring_bwd, sweep, sweep_bwd, warp
@@ -318,7 +331,12 @@ def read_counts():
         return sum(n for views, n in counts.items() if views > 1)
 
     return {"sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
-            "tau_sweep": lighting.launches, "tau_adj": lighting.adj_launches,
+            "tau_sweep": sum(lighting.launches.values()),
+            "tau_adj": sum(lighting.adj_launches.values()),
+            "tau_sweep_dirs": sum(lighting.directions.values()),
+            "tau_adj_dirs": sum(lighting.adj_directions.values()),
+            "tau_sweep_plane_loop": lighting.launches[0],
+            "tau_adj_plane_loop": lighting.adj_launches[0],
             "sweep_fwd_views": batched(sweep.launches),
             "sweep_bwd_views": batched(sweep_bwd.launches),
             "warp_rows_fwd": warp.launches["warp_rows_fwd"],
@@ -356,13 +374,11 @@ def c4_row_groups():
 
 
 def backward_kernels(dev):
-    """K3 (backward sweep) against sweep_bwd_torch, K1 with the fused
-    softplus against its twin, and K4 (tau adjoint) against
-    tau_sweep_adj_torch, on the card at the main paths' shapes. Returns
-    the numbers for the summary."""
+    """K3 (backward sweep) against sweep_bwd_torch and K1 with the fused
+    softplus against its twin, on the card at the main paths' shapes.
+    Returns the numbers for the summary."""
     from tpuvr_torch import configs
     from tpuvr_torch.io.synth import smoke_sphere
-    from tpuvr_torch.kernels import lighting as klight
     from tpuvr_torch.kernels import sweep as ksweep
     from tpuvr_torch.kernels import sweep_bwd as kbwd
     from tpuvr_torch.kernels.sweep_torch import (
@@ -500,38 +516,7 @@ def backward_kernels(dev):
             "max|grad| against per-ray autograd (tol 1e-5)")
         check(n_term > 0 and fwd_err <= 1e-5 and err <= 1e-5 * scale,
               f"sweep_bwd eps>0 softplus={softplus}")
-    del cases, grid, args, a, g
-
-    # K4 at 256^3, the two directions K2 is held at, every tier.
-    adj_err = 0.0
-    g = randn(*grid256.shape[:3])
-    del grid256
-    for d_y, d_x in ((0.31, 0.52), (-0.44, -0.9)):
-        dt = (1.0 + d_y * d_y + d_x * d_x) ** 0.5
-        for prec in ("highest", "high", "default"):
-            kw = dict(d_y=d_y, d_x=d_x, dt=dt, precision=prec)
-            k = klight.tau_sweep_adj(g, **kw)
-            p = klight.tau_sweep_adj_torch(g, **kw)
-            torch.cuda.synchronize()
-            scale = float(p.abs().max())
-            err = float((k - p).abs().max())
-            log(f"[kernel] tau_adj 256^3 d=({d_y:g},{d_x:g}) {prec}: max "
-                f"abs err {err:.3e} = {err / scale:.3e} of max {scale:.3f} "
-                "(tol 1e-5)")
-            check(err <= 1e-5 * scale and bool(torch.isfinite(k).all())
-                  and bool((k[0] == 0).all()), f"tau_adj {prec}")
-            if prec == "highest":
-                adj_err = max(adj_err, err)
-    kw = dict(d_y=0.31, d_x=0.52, dt=(1 + 0.31**2 + 0.52**2) ** 0.5)
-    out["adj_ms"] = cuda_ms(lambda: klight.tau_sweep_adj(g, **kw), 5)
-    out["adj_plain_ms"] = cuda_ms(lambda: klight.tau_sweep_adj_torch(g, **kw),
-                                  2)
-    out["adj_err"] = adj_err
-    out["adj_bytes_ms"] = 2 * g.numel() * 4 / HBM_BYTES_PER_S * 1e3
-    out["adj_ops_ms"] = 4 * g.numel() / F32_FLOP_PER_S * 1e3
-    out["adj_planes"] = g.shape[0]
-    log(f"[kernel] tau_adj 256^3: {out['adj_ms']:.4f} ms/direction (plain "
-        f"{out['adj_plain_ms']:.4f}, bound {out['adj_bytes_ms']:.4f})")
+    del cases, grid, grid256, args, a, g
     return out
 
 
@@ -1072,6 +1057,409 @@ def fwd_phase(dev):
     return out
 
 
+def light_direction(w):
+    """(axis, flip, d_y, d_x, dt) of the tau sweep toward unit direction w,
+    as ``tpuvr_torch.ops.lighting`` sets it up (kept here so that the light
+    phase also runs in a tree that has no direction table)."""
+    from tpuvr_torch.ref.march import PT_PERM
+
+    axis = int(np.argmax(np.abs(w)))
+    wp = np.asarray(w, dtype=np.float64)[list(PT_PERM[axis])]
+    dz = abs(float(wp[2]))
+    return (axis, bool(wp[2] < 0), float(wp[1]) / dz, float(wp[0]) / dz,
+            1.0 / dz)
+
+
+def tau_bound(fields, outputs):
+    """(bytes ms, operations ms) of tau sweeps reading each of ``fields``
+    once and writing ``outputs`` volumes of the same size:
+    TAU_FLOPS_PER_VOXEL per output voxel."""
+    vox = fields[0].numel()
+    return ((len(fields) + outputs) * vox * 4 / HBM_BYTES_PER_S * 1e3,
+            TAU_FLOPS_PER_VOXEL * outputs * vox / F32_FLOP_PER_S * 1e3)
+
+
+def lit_fit_setup():
+    """(lighting, grid size) of the lit fit in ``training``: c4 halved to
+    128^3, 16 directions, differentiable shadows."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.config import LightingConfig
+
+    return (LightingConfig(mode="lightvolume", n_samples=16, detach=False),
+            configs.CONFIGS["c4"]["grid_n"] // 2)
+
+
+def light_kernels(dev):
+    """K2 (tau sweep) and K4 (its adjoint) against their plain versions on
+    the card, as the lit render bakes them: c3's 16 directions over its
+    256^3 density in one batched call each way, in every tier (1e-5 of the
+    largest value: f32 sums of the same products in another order), a
+    one-direction call bit for bit against the batch; the lit fit's 16
+    directions over a 128^3 density (and seeded cotangents) in every tier,
+    taking the cluster size the lit fit takes (4 on the H100); c5's 512^2
+    planes (S = 64, the c3 shifts) against the plain versions and bit for
+    bit against the plane loop; a plane wider than the cluster route takes
+    (1100 columns) through the plane loop. Times the 16-direction bake and
+    one direction each way (CUDA events, the bound from the call's own
+    inputs). The cluster size each of these check runs took is kept under
+    "check_run_routes". Returns the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import lighting as klight
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ref.march import GRID_PERM
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rows_of(field_for, table):
+        return [(field_for(a), flip, d_y, d_x, dt)
+                for a, flip, d_y, d_x, dt in table]
+
+    def route(call, counts=klight.launches):
+        """(result, {cluster size: launches}) of one call."""
+        before = counts.copy()
+        res = call()
+        return res, dict(counts - before)
+
+    def hold(label, kernel, plain, rows, prec):
+        outs = kernel(rows, prec)
+        ref = plain(rows, prec)
+        torch.cuda.synchronize()
+        scale = max(float(r.abs().max()) for r in ref)
+        err = max(float((o - r).abs().max()) for o, r in zip(outs, ref))
+        ok = err <= 1e-5 * scale and all(bool(torch.isfinite(o).all())
+                                         for o in outs)
+        log(f"[kernel] {label} {prec}: max abs err {err:.3e} = "
+            f"{err / scale:.3e} of max {scale:.3f} (tol 1e-5)")
+        check(ok, f"{label} {prec}")
+        return err, outs
+
+    c3 = configs.CONFIGS["c3"]
+    lcfg = c3["lighting"]
+    table = olight.direction_table(lcfg)
+    sigma = smoke_sphere(c3["grid_n"], device=dev)[..., 0].contiguous()
+    fields = {a: sigma.permute(GRID_PERM[a][:3]).contiguous()
+              for a in sorted({row[0] for row in table})}
+    rows = rows_of(fields.__getitem__, table)
+    grows = [(torch.randn(r[0].shape, generator=gen, device=dev), *r[1:])
+             for r in rows]
+    out = {"shape": f"c3: {tuple(sigma.shape)}, "
+           f"{len(rows)} directions over {len(fields)} sweep axes"}
+    for prec in ("highest", "high", "default"):
+        err, taus = hold("tau_sweep c3 bake", klight.tau_sweep_dirs,
+                         klight.tau_sweep_dirs_torch, rows, prec)
+        adj_err, ds = hold("tau_adj c3 bake", klight.tau_sweep_adj_dirs,
+                           klight.tau_sweep_adj_dirs_torch, grows, prec)
+        for i in (0, 1):
+            field, flip, d_y, d_x, dt = rows[i]
+            kw = dict(d_y=d_y, d_x=d_x, dt=dt, precision=prec)
+            f = field.flip(0) if flip else field
+            one = klight.tau_sweep(f.contiguous(), **kw)
+            one_d = klight.tau_sweep_adj(grows[i][0].flip(0).contiguous()
+                                         if flip else grows[i][0], **kw)
+            same = (torch.equal(one.flip(0) if flip else one, taus[i])
+                    and torch.equal(one_d.flip(0) if flip else one_d, ds[i]))
+            log(f"[kernel] tau_sweep/tau_adj {prec} direction {i}: one "
+                f"direction bit for bit the batch's {same}")
+            check(same, f"tau one direction vs batch {prec}")
+        if prec == "highest":
+            out["max_abs_err"], out["adj_max_abs_err"] = err, adj_err
+        del taus, ds
+
+    # The lit fit's table and planes (128^2, clusters of 4 on the H100).
+    lit_cfg, n_lit = lit_fit_setup()
+    lit_table = olight.direction_table(lit_cfg)
+    lit_sigma = smoke_sphere(n_lit, device=dev)[..., 0].contiguous()
+    lit_rows = rows_of({a: lit_sigma.permute(GRID_PERM[a][:3]).contiguous()
+                        for a in {row[0] for row in lit_table}}.__getitem__,
+                       lit_table)
+    lit_grows = [(torch.randn(r[0].shape, generator=gen, device=dev),
+                  *r[1:]) for r in lit_rows]
+    lit = {"routes": {}, "max_abs_err": {}, "adj_max_abs_err": {}}
+    for prec in ("highest", "high", "default"):
+        (err, _), k2 = route(lambda: hold(
+            f"tau_sweep lit fit {n_lit}^3", klight.tau_sweep_dirs,
+            klight.tau_sweep_dirs_torch, lit_rows, prec))
+        (adj_err, _), k4 = route(lambda: hold(
+            f"tau_adj lit fit {n_lit}^3", klight.tau_sweep_adj_dirs,
+            klight.tau_sweep_adj_dirs_torch, lit_grows, prec),
+            klight.adj_launches)
+        lit["max_abs_err"][prec], lit["adj_max_abs_err"][prec] = err, adj_err
+        lit["routes"][prec] = {"tau_sweep": k2, "tau_adj": k4}
+        log(f"[kernel] tau lit fit table {prec}: launches by cluster size "
+            f"K2 {k2} K4 {k4}")
+        check(k2 == {4: 1} and k4 == {4: 1},
+              f"lit fit table {prec}: one launch in clusters of 4 each way "
+              f"expected, got K2 {k2} K4 {k4}")
+    out["lit_fit"] = lit
+    del lit_rows, lit_grows, lit_sigma
+
+    # Times: the bake (16 directions, one call) and one direction, each way.
+    one_row, one_grow = rows[:1], grows[:1]
+    routes = out["check_run_routes"] = {"lit_fit_table": lit["routes"]}
+    (_, routes["c3_bake"]) = route(lambda: klight.tau_sweep_dirs(rows))
+    (_, routes["one_direction"]) = route(
+        lambda: klight.tau_sweep_dirs(one_row))
+    fns = {"bake": lambda: klight.tau_sweep_dirs(rows),
+           "adj_bake": lambda: klight.tau_sweep_adj_dirs(grows),
+           "one": lambda: klight.tau_sweep_dirs(one_row),
+           "adj_one": lambda: klight.tau_sweep_adj_dirs(one_grow)}
+    for name, ms in interleaved_ms(fns, 5).items():
+        out[f"{name}_ms"] = ms
+    for name, fn in fns.items():
+        out[f"{name}_device_ms"] = device_ms(fn, 3)[0]
+    out["plain_bake_ms"] = cuda_ms(
+        lambda: klight.tau_sweep_dirs_torch(rows), 1)
+    out["adj_plain_bake_ms"] = cuda_ms(
+        lambda: klight.tau_sweep_adj_dirs_torch(grows), 1)
+    out["plain_one_ms"] = cuda_ms(
+        lambda: klight.tau_sweep_dirs_torch(one_row), 2)
+    out["adj_plain_one_ms"] = cuda_ms(
+        lambda: klight.tau_sweep_adj_dirs_torch(one_grow), 2)
+    out["bake_bytes_ms"], out["bake_ops_ms"] = tau_bound(
+        list(fields.values()), len(rows))
+    out["adj_bake_bytes_ms"], out["adj_bake_ops_ms"] = tau_bound(
+        [g for g, *_ in grows], len(grows))
+    out["one_bytes_ms"], out["one_ops_ms"] = tau_bound([sigma], 1)
+    log(f"[kernel] tau_sweep c3 bake ({len(rows)} directions, one call, "
+        f"clusters {routes['c3_bake']}): {out['bake_ms']:.4f} ms, adjoint "
+        f"{out['adj_bake_ms']:.4f} ms (plain {out['plain_bake_ms']:.2f} / "
+        f"{out['adj_plain_bake_ms']:.2f}); one direction (clusters "
+        f"{routes['one_direction']}) {out['one_ms']:.4f} / "
+        f"{out['adj_one_ms']:.4f} "
+        f"ms (plain {out['plain_one_ms']:.2f} / "
+        f"{out['adj_plain_one_ms']:.2f}); bound {out['bake_bytes_ms']:.4f} "
+        f"a bake, {out['one_bytes_ms']:.4f} a direction (bytes)")
+    del rows, grows, fields, one_row, one_grow
+
+    # c5's 512^2 planes, and a plane too wide for the cluster route.
+    sig = torch.rand((64, 512, 512), generator=gen, device=dev) - 0.3
+    rows = rows_of(lambda a: sig, table)
+    grows = [(torch.randn(sig.shape, generator=gen, device=dev), *r[1:])
+             for r in rows]
+    (taus, routes["c5_512"]) = route(lambda: klight.tau_sweep_dirs(rows))
+    ds = klight.tau_sweep_adj_dirs(grows)
+    loop = klight.tau_sweep_dirs(rows, _cluster=0)
+    loop_d = klight.tau_sweep_adj_dirs(grows, _cluster=0)
+    same = (all(torch.equal(a, b) for a, b in zip(taus, loop))
+            and all(torch.equal(a, b) for a, b in zip(ds, loop_d)))
+    del taus, ds, loop, loop_d
+    err, _ = hold("tau_sweep 64x512^2", klight.tau_sweep_dirs,
+                  klight.tau_sweep_dirs_torch, rows, "highest")
+    adj_err, _ = hold("tau_adj 64x512^2", klight.tau_sweep_adj_dirs,
+                      klight.tau_sweep_adj_dirs_torch, grows, "highest")
+    log(f"[kernel] tau 64x512^2, clusters {routes['c5_512']}: bit for bit "
+        f"the plane loop {same}")
+    check(same and set(routes["c5_512"]) == {16}, "tau 512^2 cluster route")
+    out["c5"] = dict(max_abs_err=err, adj_max_abs_err=adj_err,
+                     bit_identical_to_plane_loop=same)
+    del rows, grows, sig
+    wide = torch.rand((6, 8, 1100), generator=gen, device=dev)
+    wrow = [(wide, True, 0.3, -0.7, 1.2)]
+    (w_tau, routes["wide_1100"]) = route(
+        lambda: klight.tau_sweep_dirs(wrow))
+    w_err = float((w_tau[0] - klight.tau_sweep_dirs_torch(wrow)[0]
+                   ).abs().max())
+    log(f"[kernel] tau_sweep 6x8x1100 (wider than the cluster route): "
+        f"launches {routes['wide_1100']}, max abs err {w_err:.3e}")
+    check(routes["wide_1100"] == {0: 5} and w_err <= 1e-5 * float(
+        w_tau[0].abs().max()), "tau plane loop for a wide plane")
+    return out
+
+
+def light_phase(dev):
+    """The light bake's kernels alone (K2, K4), for redesigning them: at
+    c3's 16 directions over its 256^3 density, SHA-256 digests of every
+    direction's tau at 'highest' and of four at 'high' and 'default', of
+    K4's gradient for the same directions (from seeded cotangents), of the
+    light volume L and of dL/dsigma, and of the lit fit's first-step
+    gradient (c4 cut to 128^3, 8 views at 128^2, 16 directions,
+    detach=False); CUDA-event times in interleaved rounds of K2 and K4 for
+    the bake and for one direction, of the light volume and of c3's
+    prepare_grid (with the bake's host wall time, device time and peak
+    memory), and the lit fit's step times; the bounds; the cluster size and
+    route of each batched call, and K2's times at each cluster size where
+    the wrappers can be asked for one. Every array is digested in the (Z, Y, X)
+    layout, so that the phase gives the same digests in a tree that has
+    only the one-direction wrappers (its parent), for holding a change bit
+    for bit against it in one call. Returns the numbers for the summary."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import lighting as klight
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ref.camera import dominant_axis
+    from tpuvr_torch.ref.march import GRID_PERM
+    from tpuvr_torch.train import fit
+
+    batched = hasattr(klight, "tau_sweep_dirs")
+    c3 = configs.CONFIGS["c3"]
+    lcfg = c3["lighting"]
+    dirs = olight.hemisphere_dirs(lcfg.n_samples, lcfg.up)
+    table = [light_direction(w) for w in dirs]
+    sigma = smoke_sphere(c3["grid_n"], device=dev)[..., 0].contiguous()
+    perm = {a: GRID_PERM[a][:3] for a in range(3)}
+    inv = {a: tuple(int(i) for i in np.argsort(perm[a])) for a in range(3)}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    gs = [torch.randn(sigma.shape, generator=gen, device=dev) for _ in table]
+    out = {"batched": batched, "digests": {}, "cases": {}, "routes": {}}
+
+    def layout(vol, i):
+        """Direction i's input in its sweep layout (flipped too where the
+        one-direction wrapper needs it)."""
+        a, flip = table[i][:2]
+        v = vol.permute(perm[a])
+        return (v.flip(0) if flip and not batched else v).contiguous()
+
+    def back(res, i):
+        a, flip = table[i][:2]
+        return (res.flip(0) if flip and not batched else res).permute(inv[a])
+
+    def sweeps(adjoint, vols, idx, prec):
+        """The directions idx of K2 (vols: the density) or K4 (vols: one
+        cotangent a direction) from prepared inputs: one call (batched) or
+        one call a direction; outputs in their sweep layout."""
+        if batched:
+            rows = [(vols[i], *table[i][1:]) for i in idx]
+            fn = klight.tau_sweep_adj_dirs if adjoint else klight.tau_sweep_dirs
+            return lambda: fn(rows, prec)
+        fn = klight.tau_sweep_adj if adjoint else klight.tau_sweep
+        return lambda: [fn(vols[i], d_y=table[i][2], d_x=table[i][3],
+                           dt=table[i][4], precision=prec) for i in idx]
+
+    every = list(range(len(table)))
+    few = (0, 5, 10, 15)
+    sig_in = [layout(sigma, i) for i in every]
+    g_in = [layout(g, i) for i, g in enumerate(gs)]
+    for prec in ("highest", "high", "default"):
+        idx = every if prec == "highest" else few
+        before = klight.launches.copy() if batched else None
+        taus = sweeps(False, sig_in, idx, prec)()
+        ds = sweeps(True, g_in, idx, prec)()
+        if batched:
+            out["routes"][prec] = {str(k): v for k, v in (
+                klight.launches - before).items()}
+        for i, t, d in zip(idx, taus, ds):
+            out["digests"][f"tau_{prec}_d{i:02d}"] = digest(back(t, i))
+            out["digests"][f"ds_{prec}_d{i:02d}"] = digest(back(d, i))
+        del taus, ds
+    for prec in ("highest", "default"):
+        out["digests"][f"L_{prec}"] = digest(olight.light_volume(
+            sigma, lcfg, prec))
+    s = sigma.clone().requires_grad_(True)
+    (olight.light_volume(s, lcfg) * gs[0]).sum().backward()
+    out["digests"]["dL_dsigma_highest"] = digest(s.grad)
+    del s
+
+    # Times, interleaved: K2 and K4 for the bake and for one direction, the
+    # light volume, c3's prepare_grid (its bake and the lit grid).
+    grid = smoke_sphere(c3["grid_n"], device=dev)
+    axis = dominant_axis(configs.camera(c3))
+    prec3 = c3["render"].precision
+    fns = {"k2_bake": sweeps(False, sig_in, every, "highest"),
+           "k4_bake": sweeps(True, g_in, every, "highest"),
+           "k2_direction": sweeps(False, sig_in, [0], "highest"),
+           "k4_direction": sweeps(True, g_in, [0], "highest"),
+           "light_volume": lambda: olight.light_volume(sigma, lcfg),
+           "c3_bake": lambda: render.prepare_grid(
+               grid, axes=(axis,), lighting=lcfg, precision=prec3)}
+    ms = interleaved_ms(fns, 3)
+    # The bake's inputs: the density in each sweep axis's layout.
+    fields = [sigma] * len({r[0] for r in table})
+    bounds = {"k2_bake": tau_bound(fields, len(table)),
+              "k4_bake": tau_bound(g_in, len(table)),
+              "k2_direction": tau_bound([sigma], 1),
+              "k4_direction": tau_bound([sigma], 1)}
+    for name, fn in fns.items():
+        dev_ms, top, _ = device_ms(fn, 2)
+        case = {"ms": ms[name], "device_ms": dev_ms,
+                "device_top": [[k, v] for k, v in top]}
+        if name in bounds:
+            b, o = bounds[name]
+            case.update(bytes_ms=b, ops_ms=o, bound_ms=max(b, o),
+                        bound_by="bytes" if b >= o else "operations")
+        out["cases"][name] = case
+        log(f"[light] {name}: {ms[name]:.4f} ms (events, median of 5 "
+            f"rounds); device " + ("not measured" if dev_ms is None else
+                                   f"{dev_ms:.4f} ms") + (
+            f"; bound {case['bound_ms']:.4f} ms ({case['bound_by']})"
+            if name in bounds else ""))
+    if batched and "_cluster" in inspect.signature(
+            klight.tau_sweep_dirs).parameters:
+        # K2 at each cluster size the route has, for the bake and for one
+        # direction (the C entry chooses among them by residency).
+        rows = [(sig_in[i], *table[i][1:]) for i in every]
+        sizes = {f"k2_{what}_n{n}": (
+            lambda r=r, n=n: klight.tau_sweep_dirs(r, _cluster=n))
+            for what, r in (("bake", rows), ("direction", rows[:1]))
+            for n in klight.CLUSTERS}
+        out["cluster_sizes_ms"] = interleaved_ms(sizes, 3)
+        log(f"[light] K2 by cluster size (events ms, median of 5 rounds): "
+            f"{out['cluster_sizes_ms']}")
+        del rows, sizes
+    del fns, sig_in, g_in
+    for _ in range(2):  # the second is the one kept: allocator warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prep = render.prepare_grid(grid, axes=(axis,), lighting=lcfg,
+                                   precision=prec3)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del prep
+    out["c3_bake_wall_ms"], out["c3_bake_peak_gib"] = wall, peak
+    log(f"[light] c3 prepare_grid (16-direction bake, lit grid): host wall "
+        f"{wall:.2f} ms, peak {peak:.3f} GiB above the grid")
+    del grid, gs
+
+    # The lit fit: its first-step gradient (twice: deterministic?) and the
+    # times of three steps.
+    c4 = configs.CONFIGS["c4"]
+    nl = c4["grid_n"] // 2
+    lit = LightingConfig(mode="lightvolume", n_samples=16, detach=False)
+    lcams = configs.cameras(c4, n=nl, res=nl, n_views=8)
+    ltargets = fit.render_all_views(smoke_sphere(nl), lcams, c4["render"],
+                                    lighting=lit)
+
+    class Record(fit.Adam):
+        """Adam that keeps the first gradient it is given."""
+
+        def update(self, grads, state):
+            if not hasattr(self, "first"):
+                object.__setattr__(self, "first", grads.detach().clone())
+            return super().update(grads, state)
+
+    grads, steps_ms = [], None
+    run_root = tempfile.mkdtemp(prefix=".chip_smoke_",
+                                dir=Path(__file__).resolve().parent)
+    try:
+        for steps in (3, 1):
+            opt = Record(c4["train"].lr)
+            cfg = dataclasses.replace(c4["train"], steps=steps, ckpt_every=0)
+            _, _, hist = fit.fit_grid(ltargets, lcams, (nl, nl, nl, 4), cfg,
+                                      c4["render"], lighting=lit, opt=opt,
+                                      run_dir=f"{run_root}/lit{steps}")
+            torch.cuda.synchronize()
+            grads.append(opt.first)
+            steps_ms = steps_ms or hist["step_ms"]
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    same = torch.equal(grads[0], grads[1])
+    out["digests"]["lit_fit_first_step_grad"] = digest(grads[0])
+    out["lit_fit"] = dict(step_ms=steps_ms, first_grad_deterministic=same)
+    log(f"[light] lit fit {nl}^3, 16 directions, detach=False: step ms "
+        f"{[round(t, 3) for t in steps_ms]}; first-step gradient the same "
+        f"over two runs {same}")
+    if batched:
+        log(f"[light] cluster launches by size, per tier: {out['routes']}")
+    for key, value in sorted(out["digests"].items()):
+        log(f"[light] digest {key} {value}")
+    return out
+
+
 def warp_kernels(dev):
     """The row-block warp pair (K7: forward, K8: backward) at c4's row plans,
     the first view of the first group of each sweep axis (the two plan
@@ -1214,6 +1602,7 @@ def training(dev, run_root):
     from tpuvr_torch.config import LightingConfig
     from tpuvr_torch.dist.workers import CaptureGrad
     from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.kernels import lighting as klight
     from tpuvr_torch.train import fit
     from tpuvr_torch.utils.metrics import psnr
 
@@ -1478,8 +1867,7 @@ def training(dev, run_root):
     del preds, grid_rows
 
     # Lit training with differentiable shadows, reduced to 128^3.
-    nl = n // 2
-    lcfg = LightingConfig(mode="lightvolume", n_samples=16, detach=False)
+    lcfg, nl = lit_fit_setup()
     lcams = configs.cameras(c4, n=nl, res=nl, n_views=8)
     ltargets = fit.render_all_views(smoke_sphere(nl), lcams, run,
                                     lighting=lcfg)
@@ -1489,15 +1877,25 @@ def training(dev, run_root):
                                  run_dir=f"{run_root}/lit", lighting=lcfg)
     torch.cuda.synchronize()
     counts = read_counts()
+    by_size = {name: dict(c) for name, c in (
+        ("tau_sweep", klight.launches), ("tau_adj", klight.adj_launches),
+        ("tau_sweep_dirs", klight.directions),
+        ("tau_adj_dirs", klight.adj_directions))}
     log(f"[main] lit fit {nl}^3, 16 directions, detach=False: "
         f"{hist['step_ms'][-1]:.2f} ms for the second step, loss "
-        f"{hist['loss'][0]:.5f} -> {hist['loss'][-1]:.5f}, launches {counts}")
-    check(counts["tau_adj"] > 0 and counts["tau_sweep"] > 0
+        f"{hist['loss'][0]:.5f} -> {hist['loss'][-1]:.5f}, launches {counts}, "
+        f"tau launches and directions by cluster size {by_size}")
+    check(counts["tau_adj"] == cfg.steps
+          and counts["tau_adj_dirs"] == cfg.steps * lcfg.n_samples
+          and counts["tau_sweep"] >= cfg.steps
+          and counts["tau_sweep_plane_loop"] == 0
+          and counts["tau_adj_plane_loop"] == 0
           and counts["sweep_bwd"] + counts["sweep_bwd_views"] > 0,
-          "lit fit did not launch the kernels")
+          "lit fit: one tau_adj cluster launch a step (all directions) and "
+          "the sweep kernels expected")
     check(bool(torch.isfinite(grid).all()), "lit fit grid")
     out["lit"] = dict(second_step_ms=hist["step_ms"][-1], launches=counts,
-                      loss=hist["loss"])
+                      by_cluster_size=by_size, loss=hist["loss"])
     return out
 
 
@@ -1830,7 +2228,8 @@ def finish(t_start):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
-                        choices=("all", "dist", "warp", "bwd", "fwd"),
+                        choices=("all", "dist", "warp", "bwd", "fwd",
+                                 "light"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
                              "alone; 'warp': build, then the row warp's "
@@ -1839,7 +2238,10 @@ def main(argv=None):
                              "digests of its gradients and its stages' "
                              "times; 'fwd': build, then the forward sweep "
                              "(K1, K5) alone, with digests of its outputs, "
-                             "times and geometry")
+                             "times and geometry; 'light': build, then the "
+                             "light bake's tau sweep and its adjoint (K2, "
+                             "K4) alone, with digests, times and the lit "
+                             "fit's first-step gradient")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1862,8 +2264,9 @@ def main(argv=None):
 
     # 1. Build.
     t0 = time.time()
-    logs = _build.build(("sweep_fwd",) if opts.phase == "fwd"
-                        else _build.SOURCES)
+    logs = _build.build({"fwd": ("sweep_fwd",),
+                         "light": ("tau_sweep", "tau_adj")}.get(
+                             opts.phase, _build.SOURCES))
     log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
         for line in ptxas_report(text):
@@ -1881,6 +2284,9 @@ def main(argv=None):
         return finish(t_start)
     if opts.phase == "fwd":
         log(json.dumps({"fwd": fwd_phase(dev)}))
+        return finish(t_start)
+    if opts.phase == "light":
+        log(json.dumps({"light": light_phase(dev)}))
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
@@ -1966,35 +2372,7 @@ def main(argv=None):
                 for k, v in sweep_ms[name].items()))
         del grid, args, outs
 
-    # K2 at 256^3: positive d; negative d on a flipped, permuted axis.
-    sigma = smoke_sphere(256, device=dev)[..., 0].contiguous()
-    tau_err = 0.0
-    tau_cases = [
-        (sigma, 0.31, 0.52),
-        (sigma.permute(2, 1, 0).flip(0).contiguous(), -0.44, -0.9),
-    ]
-    for sig_p, d_y, d_x in tau_cases:
-        dt = (1.0 + d_y * d_y + d_x * d_x) ** 0.5
-        for prec in ("highest", "default"):
-            kw = dict(d_y=d_y, d_x=d_x, dt=dt, precision=prec)
-            k = klight.tau_sweep(sig_p, **kw)
-            p = klight.tau_sweep_torch(sig_p, **kw)
-            torch.cuda.synchronize()
-            scale = float(p.abs().max())
-            err = float((k - p).abs().max())
-            log(f"[kernel] tau_sweep 256^3 d=({d_y:g},{d_x:g}) {prec}: "
-                f"max abs err {err:.3e}, {err / scale:.3e} of max tau "
-                f"{scale:.3f} (tol 1e-5 of max tau)")
-            check(err <= 1e-5 * scale and bool(torch.isfinite(k).all()),
-                  f"tau_sweep d=({d_y},{d_x}) {prec}")
-            if prec == "highest":
-                tau_err = max(tau_err, err)
-    tau_kw = dict(d_y=0.31, d_x=0.52, dt=(1 + 0.31**2 + 0.52**2) ** 0.5)
-    tau_ms = cuda_ms(lambda: klight.tau_sweep(sigma, **tau_kw), 5)
-    tau_plain_ms = cuda_ms(lambda: klight.tau_sweep_torch(sigma, **tau_kw),
-                           2)
-    log(f"[kernel] tau_sweep 256^3: {tau_ms:.4f} ms/direction "
-        f"(plain {tau_plain_ms:.4f})")
+    light = light_kernels(dev)
     bwd = backward_kernels(dev)
     vb = view_batch_kernels(dev)
     wk = warp_kernels(dev)
@@ -2017,12 +2395,6 @@ def main(argv=None):
             f"max abs err {err:.3e} (tol {tol:.1e})")
         check(err <= tol, f"render_view {name} card vs cpu")
 
-    tau_planes = sigma.shape[0]
-    tau_bytes = 2 * sigma.numel() * 4
-    tau_bytes_ms = tau_bytes / HBM_BYTES_PER_S * 1e3
-    tau_ops_ms = TAU_FLOPS_PER_VOXEL * sigma.numel() / F32_FLOP_PER_S * 1e3
-    del sigma, tau_cases
-
     # 3. The main path at full size, through the entry points.
     reset_counts()
     frames = {}
@@ -2037,19 +2409,27 @@ def main(argv=None):
         if cfg["lighting"] is not None:
             torch.cuda.synchronize()
             t0 = time.time()
-            before = klight.launches
+            before = (klight.launches.copy(), klight.directions.copy())
             prep = render.prepare_grid(grid, axes=(axis,),
                                        lighting=cfg["lighting"],
                                        precision=run.precision)
             torch.cuda.synchronize()
             bake_ms = (time.time() - t0) * 1e3
-            check(klight.launches - before == cfg["lighting"].n_samples,
-                  "light bake did not go through the tau kernel")
+            bake_route = (dict(klight.launches - before[0]),
+                          dict(klight.directions - before[1]))
+            n_dirs = cfg["lighting"].n_samples
+            check(len(bake_route[0]) == 1 and 0 not in bake_route[0]
+                  and list(bake_route[0].values()) == [1]
+                  and list(bake_route[1].values()) == [n_dirs],
+                  f"light bake: one cluster launch of {n_dirs} directions "
+                  f"expected, got launches {bake_route[0]} directions "
+                  f"{bake_route[1]}")
             bake_dev, bake_top, _ = device_ms(lambda: render.prepare_grid(
                 grid, axes=(axis,), lighting=cfg["lighting"],
                 precision=run.precision), 1)
             log(f"[main] c3 light bake ({cfg['lighting'].n_samples} "
-                f"directions, prepare_grid): {bake_ms:.2f} ms; device " + (
+                f"directions, prepare_grid, tau launches by cluster size "
+                f"{bake_route[0]}): {bake_ms:.2f} ms; device " + (
                     "time not measured" if bake_dev is None else
                     f"{bake_dev:.3f} ms; by kernel " + "; ".join(
                         f"{k} {v:.3f} ms" for k, v in bake_top)))
@@ -2087,7 +2467,9 @@ def main(argv=None):
                 f"{k} {v:.4f} ms" for k, v in top)))
         del prep, grid, rgb, t
     launches = read_counts()
-    log(f"[main] launches on the main path: {launches}")
+    main_sizes = (dict(klight.launches), dict(klight.directions))
+    log(f"[main] launches on the main path: {launches}; tau_sweep launches "
+        f"and directions by cluster size {main_sizes}")
     check(launches["sweep_fwd"] > 0, "main path never launched sweep_fwd")
     check(launches["tau_sweep"] > 0, "main path never launched tau_sweep")
 
@@ -2098,6 +2480,12 @@ def main(argv=None):
         train = training(dev, run_root)
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
+    lit_sizes = {name: set(train["lit"]["by_cluster_size"][name])
+                 for name in ("tau_sweep", "tau_adj")}
+    held = light["check_run_routes"]["lit_fit_table"]
+    check(all(lit_sizes[name] == set(r[name]) for r in held.values()
+              for name in lit_sizes),
+          f"lit fit took clusters {lit_sizes}, its table was held at {held}")
     # 5. The data-parallel path; rank 0's counts join the launches.
     dist, ring_entry, dist_fits = dist_phase()
     for mode in DIST_MODES:
@@ -2109,8 +2497,8 @@ def main(argv=None):
         name: {"render": launches.get(name, 0),
                **{p: train[p]["launches"][name] for p in train_paths}}
         for name in ("sweep_fwd", "sweep_bwd", "tau_sweep", "tau_adj",
-                     "sweep_fwd_views", "sweep_bwd_views", "warp_rows_fwd",
-                     "warp_rows_bwd")}
+                     "tau_sweep_dirs", "tau_adj_dirs", "sweep_fwd_views",
+                     "sweep_bwd_views", "warp_rows_fwd", "warp_rows_bwd")}
 
     def train_launches(name):
         return sum(train[p]["launches"][name] for p in train_paths)
@@ -2149,17 +2537,31 @@ def main(argv=None):
         {
             "name": "tau_sweep", "route": "cuda",
             "source": "tpuvr_torch/csrc/tau_sweep.cu",
+            "also_source": "tpuvr_torch/csrc/tau_cluster.cuh",
             "replaces": "tpuvr/kernels/lighting.py:33",
             "also_replaces": "tpuvr/kernels/lighting.py:176",
             "launches": launches["tau_sweep"],
             "launches_by_path": launches_by_path["tau_sweep"],
-            "plane_launches_per_call": tau_planes - 1,
-            "max_abs_err": tau_err,
-            "ms": tau_ms,
-            "plain_ms": tau_plain_ms,
-            **bound(tau_bytes_ms, tau_ops_ms),
+            "directions_by_path": launches_by_path["tau_sweep_dirs"],
+            "directions_per_launch": (launches["tau_sweep_dirs"]
+                                      / launches["tau_sweep"]),
+            "clusters_by_size": main_sizes[0],
+            "directions_by_size": main_sizes[1],
+            "check_run_routes": light["check_run_routes"],
+            "max_abs_err": light["max_abs_err"],
+            "ms": light["bake_ms"],
+            "device_ms": light["bake_device_ms"],
+            "plain_ms": light["plain_bake_ms"],
+            **bound(light["bake_bytes_ms"], light["bake_ops_ms"]),
             "library_ms": None,
-            "shape": "one direction at 256^3, highest",
+            "one_direction": {
+                "ms": light["one_ms"], "device_ms": light["one_device_ms"],
+                "plain_ms": light["plain_one_ms"],
+                **bound(light["one_bytes_ms"], light["one_ops_ms"])},
+            "c5_512": light["c5"],
+            "lit_fit_table": {k: light["lit_fit"][k] for k in (
+                "max_abs_err", "adj_max_abs_err")},
+            "shape": light["shape"] + ", one launch, highest",
         },
         {
             "name": "sweep_bwd", "route": "cuda",
@@ -2181,17 +2583,30 @@ def main(argv=None):
         {
             "name": "tau_adj", "route": "cuda",
             "source": "tpuvr_torch/csrc/tau_adj.cu",
+            "also_source": "tpuvr_torch/csrc/tau_cluster.cuh",
             "replaces": "tpuvr/kernels/lighting.py:64",
             "also_replaces": "tpuvr/kernels/lighting.py:131",
             "launches": train["lit"]["launches"]["tau_adj"],
             "launches_by_path": launches_by_path["tau_adj"],
-            "plane_launches_per_call": bwd["adj_planes"] - 1,
-            "max_abs_err": bwd["adj_err"],
-            "ms": bwd["adj_ms"],
-            "plain_ms": bwd["adj_plain_ms"],
-            **bound(bwd["adj_bytes_ms"], bwd["adj_ops_ms"]),
+            "directions_by_path": launches_by_path["tau_adj_dirs"],
+            "directions_per_launch": (train["lit"]["launches"]["tau_adj_dirs"]
+                                      / train["lit"]["launches"]["tau_adj"]),
+            "clusters_by_size": train["lit"]["by_cluster_size"]["tau_adj"],
+            "directions_by_size": train["lit"]["by_cluster_size"][
+                "tau_adj_dirs"],
+            "max_abs_err": light["adj_max_abs_err"],
+            "ms": light["adj_bake_ms"],
+            "device_ms": light["adj_bake_device_ms"],
+            "plain_ms": light["adj_plain_bake_ms"],
+            **bound(light["adj_bake_bytes_ms"], light["adj_bake_ops_ms"]),
             "library_ms": None,
-            "shape": "one direction at 256^3, highest",
+            "one_direction": {
+                "ms": light["adj_one_ms"],
+                "device_ms": light["adj_one_device_ms"],
+                "plain_ms": light["adj_plain_one_ms"],
+                **bound(light["one_bytes_ms"], light["one_ops_ms"])},
+            "shape": light["shape"] + " (seeded cotangents), one launch, "
+                     "highest",
         },
         {
             "name": "sweep_fwd_views", "route": "cuda",

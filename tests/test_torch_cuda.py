@@ -75,10 +75,10 @@ def test_sweep_kernel_matches_plain(card, name, precision, eps):
 def test_tau_kernel_matches_plain(card, d, precision):
     sig = smoke_sphere(20, device=card)[..., 0].contiguous()
     kw = dict(d_y=d[0], d_x=d[1], dt=1.3, precision=precision)
-    before = klight.launches
+    before = klight.launches.copy()
     k = klight.tau_sweep(sig, **kw)
     p = klight.tau_sweep_torch(sig, **kw)
-    assert klight.launches == before + 1
+    assert klight.launches - before == {16: 1}
     assert bool((k[-1] == 0).all())
     torch.testing.assert_close(k, p, rtol=0,
                                atol=1e-5 * float(p.abs().max()))
@@ -179,13 +179,147 @@ def test_sweep_bwd_kernel_ert_matches_per_ray_autograd(card, softplus):
 def test_tau_adj_kernel_matches_plain(card, d, precision):
     g = torch.randn((20, 20, 20), device=card)
     kw = dict(d_y=d[0], d_x=d[1], dt=1.3, precision=precision)
-    before = klight.adj_launches
+    before = klight.adj_launches.copy()
     k = klight.tau_sweep_adj(g, **kw)
     p = klight.tau_sweep_adj_torch(g, **kw)
-    assert klight.adj_launches == before + 1
+    assert klight.adj_launches - before == {16: 1}
     assert bool((k[0] == 0).all())
     torch.testing.assert_close(k, p, rtol=0,
                                atol=1e-5 * float(p.abs().max()))
+
+
+def _light_rows(card, planes=(20, 20, 20), n_dirs=16, seed=0):
+    """Rows (field, flip, d_y, d_x, dt) of an n_dirs-direction bake over a
+    seeded density of shape ``planes``: the c3 table's shifts, each
+    direction on the field's own layout or its (X, Y)-transposed copy."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.ops import lighting as olight
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    sig = torch.rand(planes, generator=gen, device=card) - 0.2
+    fields = (sig, sig.transpose(1, 2).contiguous())
+    table = olight.direction_table(LightingConfig(mode="lightvolume",
+                                                  n_samples=n_dirs))
+    return [(fields[i % 2], flip, d_y, d_x, dt)
+            for i, (_, flip, d_y, d_x, dt) in enumerate(table)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("planes", [(20, 20, 20), (9, 37, 23)])
+def test_batched_tau_kernels_match_plain(card, precision, planes):
+    """K2 and K4 over a 16-direction table, one launch each: against their
+    twins (1e-5 of the largest value), and each direction bit for bit the
+    same kernel called for that direction alone."""
+    rows = _light_rows(card, planes)
+    grows = [(torch.randn(r[0].shape, device=card), *r[1:]) for r in rows]
+    before = (klight.launches.copy(), klight.adj_launches.copy())
+    taus = klight.tau_sweep_dirs(rows, precision)
+    ds = klight.tau_sweep_adj_dirs(grows, precision)
+    launched = (klight.launches - before[0], klight.adj_launches - before[1])
+    assert [sum(c.values()) for c in launched] == [1, 1]
+    assert 0 not in launched[0] and 0 not in launched[1]
+    for kernel, twin, inputs, outs in (
+            (klight.tau_sweep_dirs, klight.tau_sweep_dirs_torch, rows, taus),
+            (klight.tau_sweep_adj_dirs, klight.tau_sweep_adj_dirs_torch,
+             grows, ds)):
+        ref = twin(inputs, precision)
+        scale = max(float(r.abs().max()) for r in ref)
+        for i, (o, r) in enumerate(zip(outs, ref)):
+            torch.testing.assert_close(o, r, rtol=0, atol=1e-5 * scale)
+            one = kernel([inputs[i]], precision)[0]
+            assert torch.equal(one, o)
+
+
+@pytest.mark.parametrize("adjoint", [False, True])
+def test_tau_plane_too_wide_for_clusters_takes_the_plane_loop(card,
+                                                               adjoint):
+    """A plane wider than a block's threads: the plane loop (S-1 plane
+    launches a direction, counted under 0), matching the twin; asking for
+    a cluster size on it raises."""
+    rows = [(torch.rand((5, 8, 1100), device=card), flip, 0.3, -0.7, 1.2)
+            for flip in (False, True)]
+    kernel, twin, counts = (
+        (klight.tau_sweep_adj_dirs, klight.tau_sweep_adj_dirs_torch,
+         klight.adj_launches) if adjoint else
+        (klight.tau_sweep_dirs, klight.tau_sweep_dirs_torch, klight.launches))
+    before = counts.copy()
+    outs = kernel(rows)
+    assert counts - before == {0: 2 * 4}
+    for o, r in zip(outs, twin(rows)):
+        torch.testing.assert_close(o, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        kernel(rows, _cluster=16)  # cudaErrorInvalidValue
+
+
+def test_tau_cluster_route_at_512_planes(card):
+    """c5's 512^2 planes (a few of them) take clusters of 16, bit for bit
+    the plane loop and within 1e-5 of the twin."""
+    rows = _light_rows(card, (6, 512, 512), n_dirs=4)
+    rows = [(rows[0][0], *r[1:]) for r in rows]
+    before = klight.launches.copy()
+    taus = klight.tau_sweep_dirs(rows)
+    assert klight.launches - before == {16: 1}
+    loop = klight.tau_sweep_dirs(rows, _cluster=0)
+    ref = klight.tau_sweep_dirs_torch(rows)
+    for t, l, r in zip(taus, loop, ref):
+        assert torch.equal(t, l)
+        torch.testing.assert_close(t, r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("planes,n_dirs,size", [
+    ((4, 256, 256), 16, 4), ((4, 128, 128), 16, 4), ((4, 256, 256), 1, 16),
+    ((4, 256, 256), 8, 8), ((4, 512, 512), 16, 16)])
+def test_tau_route_chosen_by_the_c_entry(card, planes, n_dirs, size):
+    """The cluster size the C entry chooses on the H100, each way: the
+    largest whose clusters for every direction are resident at once (30 of
+    4, 15 of 8, 7 of 16 at 1024 threads a CTA), else the smallest that
+    holds the planes: c3's and the lit fit's 16 directions 4, one
+    direction 16, eight 8, 16 directions of 512^2 planes 16."""
+    rows = _light_rows(card, planes, n_dirs=n_dirs)
+    for kernel, counts in ((klight.tau_sweep_dirs, klight.launches),
+                           (klight.tau_sweep_adj_dirs, klight.adj_launches)):
+        before = counts.copy()
+        kernel(rows)
+        assert counts - before == {size: 1}
+
+
+def test_tau_more_directions_than_a_launch_takes(card):
+    """A table longer than the kernel's parameter table (64 rows) takes
+    one launch per 64 directions, each direction as in a short table."""
+    rows = _light_rows(card, (6, 12, 12), n_dirs=70)
+    before = klight.launches.copy()
+    taus = klight.tau_sweep_dirs(rows)
+    assert sum((klight.launches - before).values()) == 2
+    for i in (0, 63, 64, 69):
+        assert torch.equal(taus[i], klight.tau_sweep_dirs([rows[i]])[0])
+
+
+def test_light_volume_is_one_launch_each_way(card):
+    """The bake's 16 directions in one K2 launch, and its gradient in one
+    K4 launch, matching the CPU route (1e-5)."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.ops import lighting as olight
+
+    cfg = LightingConfig(mode="lightvolume", n_samples=16)
+    sig_cpu = smoke_sphere(16, device="cpu")[..., 0] - 0.02
+    wts = torch.rand(sig_cpu.shape)
+    out = {}
+    for dev in ("cpu", card):
+        s = sig_cpu.to(dev, copy=True).requires_grad_(True)
+        before = (klight.launches.copy(), klight.adj_launches.copy(),
+                  klight.directions.copy())
+        ell = olight.light_volume(s, cfg, device=dev)
+        (ell * wts.to(dev)).sum().backward()
+        counts = [sum((c - b).values()) for c, b in zip(
+            (klight.launches, klight.adj_launches, klight.directions),
+            before)]
+        assert counts == ([0, 0, 0] if dev == "cpu" else [1, 1, 16])
+        out[str(dev)] = (ell.detach().cpu(), s.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 def test_gradients_flow_through_the_kernels(card):
@@ -198,14 +332,19 @@ def test_gradients_flow_through_the_kernels(card):
     grads = {}
     for dev in ("cpu", card):
         g = g_cpu.to(dev, copy=True).requires_grad_(True)
-        before = (kbwd.launches.copy(), klight.adj_launches)
+        before = (kbwd.launches.copy(), klight.adj_launches.copy(),
+                  klight.adj_directions.copy())
         rgb, t = render.render_view(g, cam, RenderConfig(early_stop_eps=0.0),
                                     lighting=lit, device=dev)
         (rgb.square().sum() + t.sum()).backward()
         grads[str(dev)] = g.grad.cpu()
         launched = (dict(kbwd.launches - before[0]),
-                    klight.adj_launches - before[1])
-        assert launched == (({}, 0) if dev == "cpu" else ({1: 1}, 3))
+                    dict(klight.adj_launches - before[1]),
+                    dict(klight.adj_directions - before[2]))
+        # On the card: one adjoint launch for the three directions, in
+        # clusters of 8 (12-row planes: strips of one row at 16).
+        assert launched == (({}, {}, {}) if dev == "cpu"
+                            else ({1: 1}, {8: 1}, {8: 3}))
     torch.testing.assert_close(grads["cuda"], grads["cpu"], rtol=0,
                                atol=1e-5 * float(grads["cpu"].abs().max()))
 

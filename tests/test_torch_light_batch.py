@@ -1,0 +1,270 @@
+"""The batched light bake held against the JAX package and against the
+one-direction route it replaced, on the CPU: the direction table, the
+light volume and the shadows' gradient through one batched sweep each way
+(f64 1e-12, f32 1e-5 against the JAX package's scan path; bit for bit
+against a sum of one-direction sweeps), the batched wrappers' twins, and
+the numpy twin of the cluster kernel's map of a plane over its CTAs
+(every cell kept once, every tap read from the CTA that keeps it)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuvr.config import LightingConfig as JLightingConfig
+from tpuvr.io.synth import smoke_sphere
+from tpuvr.ops import lighting as jlight
+from tpuvr_torch.config import LightingConfig
+from tpuvr_torch.kernels import lighting as tklight
+from tpuvr_torch.ops import lighting as tlight
+
+N = 10
+TOL = {"float64": 1e-12, "float32": 1e-5}
+UPS = [(0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (0.3, -0.5, 0.8)]
+
+
+def _grid(dtype, n=N):
+    return np.array(smoke_sphere(n, dtype=jnp.dtype(dtype)))
+
+
+def _cfg(n_samples=16, up=(0.0, 0.0, 1.0), detach=True, jax_side=False):
+    cls = JLightingConfig if jax_side else LightingConfig
+    return cls(mode="lightvolume", n_samples=n_samples, up=up, detach=detach)
+
+
+def _one_direction_volume(sigma, cfg):
+    """The light volume as the parent built it: one autograd function and
+    one sweep a direction, summed in the table's order."""
+    total = torch.zeros_like(sigma)
+    for w in tlight.hemisphere_dirs(cfg.n_samples, cfg.up):
+        total = total + torch.exp(-tlight._directional_tau(sigma, w))
+    return (cfg.sky_intensity / cfg.n_samples) * total
+
+
+@pytest.mark.parametrize("n_samples", [4, 16])
+@pytest.mark.parametrize("up", UPS)
+def test_direction_table_matches_the_jax_setup(monkeypatch, n_samples, up):
+    """Each row (axis, flip, d_y, d_x, dt) against what the JAX package's
+    ``_directional_tau`` hands its sweep: the shift and dt it passes to the
+    tau op, and the layout (axis, flip) read off a stand-in op that
+    returns each voxel's index in the layout it was given."""
+    seen = []
+
+    def op(d_y, d_x, dt, precision):
+        seen.append((d_y, d_x, dt))
+        return lambda sig_p: jnp.arange(sig_p.size, dtype=jnp.float64
+                                        ).reshape(sig_p.shape)
+
+    monkeypatch.setattr(jlight, "_tau_op", op)
+    shape = (5, 6, 7)
+    table = tlight.direction_table(_cfg(n_samples, up))
+    dirs = tlight.hemisphere_dirs(n_samples, up)
+    assert len(table) == len(dirs) == n_samples
+    for w, (axis, flip, d_y, d_x, dt) in zip(dirs, table):
+        got = np.asarray(jlight._directional_tau(
+            jnp.zeros(shape, jnp.float64), w, impl="pallas"))
+        assert seen[-1] == (d_y, d_x, dt)
+        perm = tlight.GRID_PERM[axis][:3]
+        idx = np.arange(np.prod(shape), dtype=np.float64).reshape(
+            np.transpose(np.zeros(shape), perm).shape)
+        if flip:
+            idx = idx[::-1]
+        np.testing.assert_array_equal(got, np.transpose(idx,
+                                                        np.argsort(perm)))
+        assert max(abs(d_y), abs(d_x)) <= 1.0
+
+
+@pytest.mark.parametrize("up", UPS)
+def test_direction_table_is_what_one_direction_uses(monkeypatch, up):
+    """``_directional_tau`` sweeps each direction with the table's shift
+    and dt (a spy on its autograd function)."""
+    seen = []
+    real = tlight._Tau.apply
+
+    def spy(sig_p, d_y, d_x, dt, precision):
+        seen.append((d_y, d_x, dt))
+        return real(sig_p, d_y, d_x, dt, precision)
+
+    monkeypatch.setattr(tlight._Tau, "apply", spy)
+    cfg = _cfg(16, up)
+    sig = torch.as_tensor(_grid("float32")[..., 0])
+    for w in tlight.hemisphere_dirs(cfg.n_samples, cfg.up):
+        tlight._directional_tau(sig, w)
+    assert seen == [row[2:] for row in tlight.direction_table(cfg)]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("up", [(0.0, 0.0, 1.0), (0.3, -0.5, 0.8)])
+def test_light_volume_and_its_gradient_match_jax(dtype, up):
+    """The batched route's L and dL/dsigma against the JAX package's scan
+    path and its autodiff."""
+    sig = _grid(dtype)[..., 0] - 0.02  # some voxels below 0: the relu mask
+    ct = np.random.default_rng(6).normal(size=sig.shape).astype(dtype)
+    ref, vjp = jax.vjp(lambda s: jlight.light_volume(
+        s, _cfg(16, up, jax_side=True), impl="xla"), jnp.asarray(sig))
+    (ref_grad,) = vjp(jnp.asarray(ct))
+    s = torch.as_tensor(sig).requires_grad_(True)
+    out = tlight.light_volume(s, _cfg(16, up), device="cpu")
+    (out * torch.as_tensor(ct)).sum().backward()
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=tol, atol=tol)
+    ref_grad = np.asarray(ref_grad)
+    np.testing.assert_allclose(s.grad.numpy(), ref_grad, rtol=0,
+                               atol=tol * np.abs(ref_grad).max())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("n_samples", [4, 16])
+def test_light_volume_bits_equal_one_direction_route(dtype, n_samples):
+    """L and dL/dsigma from the batched route equal, bit for bit, those of
+    a sweep and an autograd function a direction (autograd adds the
+    directions' gradients from the last to the first; the batched
+    backward sums in that order)."""
+    sig = _grid(dtype)[..., 0] - 0.02
+    ct = torch.as_tensor(
+        np.random.default_rng(7).normal(size=sig.shape).astype(dtype))
+    cfg = _cfg(n_samples)
+    outs = []
+    for fn in (lambda s: tlight.light_volume(s, cfg, device="cpu"),
+               lambda s: _one_direction_volume(s, cfg)):
+        s = torch.as_tensor(sig).clone().requires_grad_(True)
+        ell = fn(s)
+        (ell * ct).sum().backward()
+        outs.append((ell.detach(), s.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_apply_lighting_shadow_gradients_bits_equal_one_direction_route(
+        dtype):
+    """``apply_lighting(detach=False)``: the lit grid and its gradient
+    equal those of the one-direction route bit for bit, and match the
+    JAX package's ``jax.grad``."""
+    grid = _grid(dtype)
+    grid[..., 0] -= 0.02
+    wts = np.random.default_rng(8).normal(size=grid.shape).astype(dtype)
+    cfg = _cfg(16, detach=False)
+    ref = np.asarray(jax.grad(lambda g: jnp.sum(jlight.apply_lighting(
+        g, _cfg(16, detach=False, jax_side=True), impl="xla") * wts))(
+            jnp.asarray(grid)))
+    outs = []
+    for one in (False, True):
+        g = torch.as_tensor(grid).clone().requires_grad_(True)
+        sigma = g[..., 0]
+        ell = (_one_direction_volume(sigma, cfg) if one
+               else tlight.light_volume(sigma, cfg, device="cpu"))
+        lit = torch.cat([g[..., :1], g[..., 1:4] * ell[..., None]], dim=-1)
+        if not one:
+            assert torch.equal(lit, tlight.apply_lighting(g, cfg))
+        (lit * torch.as_tensor(wts)).sum().backward()
+        outs.append((lit.detach(), g.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    np.testing.assert_allclose(outs[0][1].numpy(), ref, rtol=0,
+                               atol=TOL[dtype] * np.abs(ref).max())
+
+
+def _rows(seed=9):
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor(rng.normal(size=(6, 7, 9)).astype(np.float32))
+    b = torch.as_tensor(rng.normal(size=(5, 9, 7)).astype(np.float32))
+    return [(a, False, 0.37, -0.81, 1.3), (a, True, -1.0, 0.25, 1.5),
+            (b, True, 0.2, 1.0, 1.1)]
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_batched_twins_are_one_direction_twins(precision):
+    """On the CPU the batched wrappers run the twins a direction (a flipped
+    row walks its field's planes in reverse) and launch nothing."""
+    rows = _rows()
+    before = (sum(tklight.launches.values()),
+              sum(tklight.adj_launches.values()))
+    taus = tklight.tau_sweep_dirs(rows, precision)
+    ds = tklight.tau_sweep_adj_dirs(rows, precision)
+    assert before == (sum(tklight.launches.values()),
+                      sum(tklight.adj_launches.values()))
+    for (field, flip, d_y, d_x, dt), tau, d in zip(rows, taus, ds):
+        kw = dict(d_y=d_y, d_x=d_x, dt=dt, precision=precision)
+        f = field.flip(0) if flip else field
+        want = tklight.tau_sweep_torch(f, **kw)
+        want_d = tklight.tau_sweep_adj_torch(f, **kw)
+        assert torch.equal(tau, want.flip(0) if flip else want)
+        assert torch.equal(d, want_d.flip(0) if flip else want_d)
+        assert bool((tau[0 if flip else -1] == 0).all())
+
+
+# Shared bytes a block may opt into on the H100
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB); the C entry reads it
+# from the card.
+H100_SHARED = 232448
+
+
+def _fits(plan):
+    """Whether the C entry takes the plane at this cluster size on the
+    H100: a suitable shape within the card's shared memory a block."""
+    return plan["ok"] and plan["smem"] <= H100_SHARED
+
+
+_PLANES = [(8, 8), (9, 13), (20, 20), (37, 23), (100, 64), (128, 128),
+           (255, 257), (256, 256), (300, 300), (512, 512), (7, 1000)]
+
+
+@pytest.mark.parametrize("plane", _PLANES)
+@pytest.mark.parametrize("n", tklight.CLUSTERS)
+def test_cluster_map_covers_the_plane(plane, n):
+    """Every cell of the plane is kept by exactly one (CTA, thread, slot),
+    and every tap of a CTA's rows (|d| <= 1, f32 positions) inside the
+    plane lies in its own rows or in its halo rows (one below, two above),
+    each of which the neighbour that writes it keeps as its last row or its
+    first two."""
+    n_y, n_x = plane
+    plan = tklight.cluster_plan(n_y, n_x, n)
+    if not _fits(plan):
+        assert (plan["by"] < 1 or plan["rows"] < 2
+                or plan["smem"] > H100_SHARED)
+        return
+    for d_y in (-1.0, -0.73, -1e-9, 0.0, 0.5, 0.999, 1.0):
+        ctas = tklight.cluster_map(n_y, n_x, n, d_y)
+        seen = np.zeros((n_y, n_x), np.int64)
+        rows = np.zeros(n_y, np.int64)
+        for c in ctas:
+            rows[c["r0"]:c["r0"] + c["own"]] += 1
+            kept = c["cells"].reshape(-1, 2)
+            kept = kept[kept[:, 0] >= 0]
+            np.add.at(seen, (kept[:, 0], kept[:, 1]), 1)
+            assert len(kept) <= tklight.THREADS * plan["cells"]
+            mine = set(range(c["r0"], c["r0"] + c["own"]))
+            for t_row in c["taps"][c["inside"]].tolist():
+                if t_row in mine:
+                    continue
+                writer = ctas[c["halo"][t_row]]
+                local = t_row - writer["r0"]
+                assert 0 <= local < writer["own"]
+                assert local in (0, 1, plan["rows"] - 1)
+        assert (rows == 1).all()
+        assert (seen == 1).all()
+
+
+def test_cluster_route_capacity():
+    """The planes the cluster route takes on the H100: c3's and the lit
+    fit's planes (256^2, 128^2) at every size, c5's 512^2 planes only at 16
+    (the largest square plane is 535^2), a plane wider than a block's
+    threads or cut into strips of one row at none (the plane loop). The
+    size the C entry chooses among them is held on the card
+    (tests/test_torch_cuda.py)."""
+    def sizes(n_y, n_x):
+        return [n for n in tklight.CLUSTERS
+                if _fits(tklight.cluster_plan(n_y, n_x, n))]
+
+    assert sizes(256, 256) == [4, 8, 16]
+    assert sizes(128, 128) == [4, 8, 16]
+    assert sizes(512, 512) == [16]
+    assert sizes(535, 535) == [16]
+    assert sizes(536, 536) == []
+    assert sizes(8, 1100) == []
+    assert sizes(4, 40) == []  # strips of one row
+    assert tklight.cluster_plan(128, 128, 4)["rows"] == 32
+    assert tklight.cluster_plan(128, 128, 4)["by"] == 8

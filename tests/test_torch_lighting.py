@@ -86,7 +86,7 @@ def test_tau_twin_matches_pallas_interpret(d):
 
 def test_tau_wrapper_runs_twin_on_cpu():
     sig = torch.as_tensor(_sigma("float32"))
-    before = tklight.launches
+    before = tklight.launches.copy()
     a = tklight.tau_sweep(sig, d_y=0.2, d_x=-0.4, dt=1.1, precision="high")
     b = tklight.tau_sweep_torch(sig, d_y=0.2, d_x=-0.4, dt=1.1,
                                 precision="high")
@@ -156,7 +156,7 @@ def test_apply_lighting_shadow_gradients_match(dtype):
 
 def test_tau_adj_wrapper_runs_twin_on_cpu():
     g = torch.as_tensor(_sigma("float32"))
-    before = tklight.adj_launches
+    before = tklight.adj_launches.copy()
     a = tklight.tau_sweep_adj(g, d_y=0.2, d_x=-0.4, dt=1.1, precision="high")
     b = tklight.tau_sweep_adj_torch(g, d_y=0.2, d_x=-0.4, dt=1.1,
                                     precision="high")

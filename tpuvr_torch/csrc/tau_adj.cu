@@ -10,16 +10,20 @@
 //
 // Replaces the TPU kernel B6 _tau_adj_kernel (tpuvr/kernels/lighting.py:64),
 // which keeps A in VMEM scratch and shifts it with two tent matmuls per
-// plane. As in tau_sweep.cu, each plane needs the whole previous plane, so
-// this first form launches one grid per plane (one thread per (y, x)) from
-// the loop in the C entry, ping-ponging A between two caller-allocated
-// planes: one call per direction, S-1 launches.
+// plane. As K2 (tau_sweep.cu), the C entry takes a table of directions and
+// runs them all in one launch of the cluster kernel (tau_cluster.cuh): A
+// spread over one cluster's shared memory a direction, ds[0] = 0 and
+// A[0] = g[0] set in the kernel.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s): read g and write ds once,
-// 2 x 67 MB at 256^3, about 0.04 ms per direction; the plane launches (a
-// few us each, as K2's) are expected to dominate.
+// 2 x 67 MB at 256^3, about 0.04 ms per direction. A plane the cluster route
+// cannot hold (as in tau_sweep.cu) takes the plane loop: one grid per plane
+// (one thread per (y, x)) from the C entry, A ping-ponged between two
+// scratch planes the entry allocates on the stream, S-1 launches a
+// direction.
 #include <cuda_runtime.h>
 
+#include "tau_cluster.cuh"
 #include "tent.cuh"
 
 namespace tpuvr {
@@ -48,45 +52,82 @@ tau_adj_plane_kernel(const float* __restrict__ acc_prev,  // (Y, X) A[k-1]
   acc[i] = __fadd_rn(g[i], h);
 }
 
+// The plane loop over every direction of the table, A ping-ponged between
+// two planes of stream-ordered scratch the size of the largest.
 template <int P>
-cudaError_t sweep(const float* g, float* ds, float* acc, int S, int Y, int X,
-                  float d_y, float d_x, float dt, cudaStream_t stream) {
-  const size_t plane = static_cast<size_t>(Y) * X;
-  cudaError_t err = cudaMemsetAsync(ds, 0, plane * sizeof(float), stream);
-  if (err != cudaSuccess) return err;
-  // A[0] = g[0] + M^T 0 = g[0].
-  err = cudaMemcpyAsync(acc, g, plane * sizeof(float),
-                        cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess) return err;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 blocks((X + kBlockX - 1) / kBlockX, (Y + kBlockY - 1) / kBlockY);
-  for (int k = 1; k < S; ++k) {
-    tau_adj_plane_kernel<P><<<blocks, block, 0, stream>>>(
-        acc + ((k - 1) & 1) * plane, g + k * plane, ds + k * plane,
-        acc + (k & 1) * plane, Y, X, -d_y, -d_x, dt);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+cudaError_t plane_loop(const tau::Table& tab, int count, cudaStream_t stream) {
+  size_t largest = 0;
+  for (int i = 0; i < count; ++i) {
+    const size_t plane = static_cast<size_t>(tab.dir[i].Y) * tab.dir[i].X;
+    if (plane > largest) largest = plane;
   }
-  return cudaSuccess;
+  float* acc = nullptr;
+  cudaError_t err = cudaMallocAsync(reinterpret_cast<void**>(&acc),
+                                    2 * largest * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < count && err == cudaSuccess; ++i) {
+    const tau::Dir& d = tab.dir[i];
+    const size_t plane = static_cast<size_t>(d.Y) * d.X;
+    auto at = [&](int k) { return (d.flip ? d.S - 1 - k : k) * plane; };
+    err = cudaMemsetAsync(d.out + at(0), 0, plane * sizeof(float), stream);
+    // A[0] = g[0] + M^T 0 = g[0].
+    if (err == cudaSuccess) {
+      err = cudaMemcpyAsync(acc, d.src + at(0), plane * sizeof(float),
+                            cudaMemcpyDeviceToDevice, stream);
+    }
+    const dim3 block(kBlockX, kBlockY);
+    const dim3 blocks((d.X + kBlockX - 1) / kBlockX,
+                      (d.Y + kBlockY - 1) / kBlockY);
+    for (int k = 1; k < d.S && err == cudaSuccess; ++k) {
+      tau_adj_plane_kernel<P><<<blocks, block, 0, stream>>>(
+          acc + ((k - 1) & 1) * plane, d.src + at(k), d.out + at(k),
+          acc + (k & 1) * plane, d.Y, d.X, -d.d_y, -d.d_x, d.dt);
+      err = cudaGetLastError();
+    }
+  }
+  const cudaError_t freed = cudaFreeAsync(acc, stream);
+  return err != cudaSuccess ? err : freed;
+}
+
+template <int P>
+cudaError_t sweep(const tau::Table& tab, int count, int* cluster,
+                  cudaStream_t stream) {
+  int smem = 0;
+  const cudaError_t err = tau::route<tau::tau_cluster_kernel<P, true>>(
+      tab, count, cluster, &smem);
+  if (err != cudaSuccess) return err;
+  if (*cluster == 0) return plane_loop<P>(tab, count, stream);
+  return tau::launch_clusters<tau::tau_cluster_kernel<P, true>>(
+      tab, count, *cluster, smem, stream);
 }
 
 }  // namespace
 }  // namespace tpuvr
 
-// C entry: the whole adjoint of one direction on `stream` (S-1 plane
-// launches); `acc` is caller-allocated scratch of 2 planes. Allocates
-// nothing, does not synchronise. Returns the first CUDA error (0 on success).
-extern "C" int tpuvr_tau_adj(const float* g, float* ds, float* acc, int S,
-                             int Y, int X, float d_y, float d_x, float dt,
-                             int precision, cudaStream_t stream) {
+// C entry: the adjoint of `count` (<= 64) directions on `stream`. srcs[i] is
+// the (S, Y, X) cotangent g of direction i and outs[i] its ds, both
+// contiguous f32; dims and coefs as tpuvr_tau_sweep_dirs (the forward's
+// d_y, d_x; the kernel negates them), and *cluster as there: the route asked
+// for on entry (-1 chooses), the route taken on return. The plane loop
+// allocates its two scratch planes on the stream (cudaMallocAsync); the
+// cluster route allocates nothing. Does not synchronise. Returns the first
+// CUDA error (0 on success).
+extern "C" int tpuvr_tau_adj_dirs(const void* const* srcs, void* const* outs,
+                                  const int* dims, const float* coefs,
+                                  int count, int* cluster, int precision,
+                                  cudaStream_t stream) {
   using namespace tpuvr;
+  tau::Table tab;
+  if (!tau::make_table(srcs, outs, dims, coefs, count, &tab)) {
+    return cudaErrorInvalidValue;
+  }
   switch (precision) {
     case kHighest:
-      return sweep<kHighest>(g, ds, acc, S, Y, X, d_y, d_x, dt, stream);
+      return sweep<kHighest>(tab, count, cluster, stream);
     case kHigh:
-      return sweep<kHigh>(g, ds, acc, S, Y, X, d_y, d_x, dt, stream);
+      return sweep<kHigh>(tab, count, cluster, stream);
     case kDefault:
-      return sweep<kDefault>(g, ds, acc, S, Y, X, d_y, d_x, dt, stream);
+      return sweep<kDefault>(tab, count, cluster, stream);
     default:
       return cudaErrorInvalidValue;
   }
