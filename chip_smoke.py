@@ -44,13 +44,21 @@ Phases, in order; any failure raises and exits non-zero:
      share card 0 over gloo (NCCL refuses two ranks on one card), so their
      times say nothing of several cards. Each rank resets and reads its own
      launch and collective counts around each run;
-  6. print one JSON line per kernel (time, bound, plain and library
+  6. the z-sharded grid (zshard) at 512^3 on 4 ranks, laid out as phase 5
+     lays them out: the 1024^2 top-down frame on a (1, 4) mesh in each
+     segment fold (all_gather, ring, retile) against the single-card
+     render at eps 0 and 'highest', and fit_grid from 2 top-down views at
+     256^2 on a (2, 2) mesh, 3 steps in the retile branch and in a row
+     band, each branch's first-step gradient held slab by slab against the
+     single-card step; launches and collectives per frame and per fit on
+     every rank, ms/frame, ms/step and peak memory per rank;
+  7. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the cards nvidia-smi lists, the card's name and power
      limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
 
 ``--phase dist`` runs the build and phase 5 alone (for a machine with
-four cards); ``--phase warp`` runs the build and the row warp's kernel
+four cards), ``--phase zshard`` the build and phase 6 alone; ``--phase warp`` runs the build and the row warp's kernel
 checks and times (K7, K8 at c4's row plans) alone; ``--phase bwd`` runs
 the build and the backward sweep's checks and times alone (K6 at the c4
 minibatch, also on a rank's row tiles and at other slab heights, K3 at
@@ -104,6 +112,14 @@ NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink 4, each direction
 DIST_RANKS = 4
 RING_CHUNKS = 4
 # fit_grid's gradient reductions on a mesh (MeshConfig's fields).
+# The z-sharded grid (ROADMAP A1): the render's and the fit's meshes
+# (data, z), the grid edge, the fit's steps and its band's rays a view.
+ZSHARD_RANKS = 4
+ZSHARD_RENDER = (1, 4)
+ZSHARD_FIT = (2, 2)
+ZSHARD_GRID = 512
+ZSHARD_STEPS = 3
+ZSHARD_BAND_RAYS = 256 * 64
 DIST_MODES = {"bucketed": dict(grad_buckets=4),
               "chunked": dict(bwd_chunks=RING_CHUNKS),
               "ring": dict(grad_ring=True, bwd_chunks=RING_CHUNKS)}
@@ -2207,6 +2223,352 @@ def dist_phase(steps=3):
     return summary, entry, [r["fits"] for r in ranks]
 
 
+def zshard_scene():
+    """The z phase's inputs, the same in the parent and on every rank: the
+    512^3 smoke sphere's shape, the top-down 1024^2 render camera, the two
+    top-down 256^2 fit cameras (``tools/zsharded_512.py``'s shape), and
+    the render config (eps 0, 'highest')."""
+    from tpuvr_torch.config import RenderConfig
+    from tpuvr_torch.io.synth import orbit_cameras
+
+    n = ZSHARD_GRID
+    return dict(
+        n=n, shape=(n, n, n, 4),
+        cam=orbit_cameras(8, n, res=1024, elevation_deg=75.0)[0],
+        cams=orbit_cameras(8, n, res=256, elevation_deg=75.0)[:2],
+        run=RenderConfig(early_stop_eps=0.0, precision="highest"))
+
+
+def zshard_fit_cfg(branch):
+    """The z fit's TrainConfig for ``branch`` ("retile": every row;
+    "band": ZSHARD_BAND_RAYS rays a view)."""
+    from tpuvr_torch.config import TrainConfig
+
+    return TrainConfig(lr=1e-2, steps=ZSHARD_STEPS, views_per_batch=2,
+                       ckpt_every=0, seed=0,
+                       rays_per_view=(ZSHARD_BAND_RAYS if branch == "band"
+                                      else None))
+
+
+def zshard_step_inputs(sc, branch, dev):
+    """(key, stacked geometry on ``dev``, rows, r0s) of the fit's one view
+    group for the first-step gradient, both views, the band at rows
+    [64, 64 + rows) of each."""
+    from tpuvr_torch.train import fit
+
+    (key, (_, stacked, _, _)), = fit.group_views(sc["cams"],
+                                                 sc["shape"]).items()
+    n_v, n_u = stacked["dt"].shape[1:]
+    rows = (fit.band_rows(ZSHARD_BAND_RAYS, n_v, n_u, ZSHARD_FIT[0])
+            if branch == "band" else None)
+    r0s = np.full(2, 64 if rows else 0, np.int32)
+    return key, {k: t.to(dev) for k, t in stacked.items()}, rows, r0s
+
+
+def zshard_rank(refs, run_root, reps):
+    """One rank of the zshard phase, started by ``zshard_phase``. Every rank
+    runs the same calls in the same order. Returns numbers only:
+
+    - "render": on the ZSHARD_RENDER mesh, the 512^3 @ 1024^2 frame in each
+      fold (the ring and the gathered fold of ``render_view_zsharded``,
+      ``render_view_retiled``): its error against the parent's single-card
+      render, SHA-256 of rgb, this rank's launches and collectives of one
+      frame, and ms/frame (CUDA events);
+    - "fit": on the ZSHARD_FIT mesh, per branch, the first step's slab
+      gradient from the initial state against the parent's single-card
+      one, then ``fit_grid`` for ZSHARD_STEPS steps with this rank's
+      launches and collectives (reset just before, read just after), its
+      losses, ms/step and peak memory; after the band fit, the retile loss
+      of its slab at the first step's views.
+    """
+    import torch.distributed as tdist
+
+    from tpuvr_torch.dist import init as dinit
+    from tpuvr_torch.dist.retile import render_view_retiled
+    from tpuvr_torch.dist.sharded_grid import render_view_zsharded
+    from tpuvr_torch.dist.workers import CaptureGrad
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.train import fit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rmesh = dinit.grid_mesh(*ZSHARD_RENDER)
+    fmesh = dinit.grid_mesh(*ZSHARD_FIT)
+    sc = zshard_scene()
+    t0 = time.time()
+
+    def reached(stage):
+        print(f"[zshard] rank {rmesh.rank} on {dev}: {stage} at "
+              f"{time.time() - t0:.1f} s", file=sys.stderr, flush=True)
+
+    def counts():
+        got = read_counts()
+        got.update({f"collective_{k}": v
+                    for k, v in dinit.collectives.items()})
+        return got
+
+    out = {"rank": rmesh.rank, "device": str(dev), "render": {}, "fit": {}}
+    grid = smoke_sphere(sc["n"], device=dev)
+    ref_rgb = torch.as_tensor(refs["rgb"], device=dev)
+    ref_t = torch.as_tensor(refs["t"], device=dev)
+    scale = float(ref_rgb.abs().max())
+    folds = {
+        "all_gather": lambda: render_view_zsharded(
+            grid, sc["cam"], rmesh, sc["run"], fold="all_gather"),
+        "ring": lambda: render_view_zsharded(grid, sc["cam"], rmesh,
+                                             sc["run"], fold="ring"),
+        "retile": lambda: render_view_retiled(grid, sc["cam"], rmesh,
+                                              sc["run"])}
+    for name, frame in folds.items():
+        tdist.barrier()
+        reset_counts()
+        rgb, t = frame()
+        torch.cuda.synchronize()
+        one = counts()
+        tdist.barrier()
+        ms = cuda_ms(frame, reps)
+        tdist.barrier()
+        dev_ms, top, _ = device_ms(frame, 1)
+        out["render"][name] = dict(
+            err_of_max=max(float((rgb - ref_rgb).abs().max()),
+                           float((t - ref_t).abs().max())) / scale,
+            finite=bool(torch.isfinite(rgb).all() and torch.isfinite(t).all()),
+            digest=digest(rgb), ms=ms, launches=one, device_ms=dev_ms,
+            top=top)
+        del rgb, t
+        reached(f"render {name}")
+    del grid, ref_rgb, ref_t
+    torch.cuda.empty_cache()
+
+    targets = torch.as_tensor(refs["targets"], device=dev)
+    d = fmesh.z.rank
+    sz = sc["n"] // fmesh.shape["z"]
+    for branch in ("retile", "band"):
+        key, stacked, rows, r0s = zshard_step_inputs(sc, branch, dev)
+        step = fit.make_train_step_zsharded(key, 2, CaptureGrad(), sc["run"],
+                                            True, "cuda", fmesh, rows=rows)
+        slab = fit.init_params((sz, *sc["shape"][1:]), True, device=dev)
+        tdist.barrier()
+        _, grad, loss = step(slab, None, stacked, targets, np.arange(2), r0s)
+        ref = torch.load(refs["grads"][branch][d], mmap=True,
+                         weights_only=True)
+        err = float((grad - ref.to(dev)).abs().max())
+        del grad, ref
+        tdist.barrier()
+        step_dev, step_top, _ = device_ms(
+            lambda: step(slab, None, stacked, targets, np.arange(2), r0s), 1)
+        del slab
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tdist.barrier()
+        reset_counts()
+        _, params, hist = fit.fit_grid(
+            targets, sc["cams"], sc["shape"],
+            zshard_fit_cfg(branch), sc["run"], mesh=fmesh,
+            run_dir=f"{run_root}/{branch}")
+        torch.cuda.synchronize()
+        res = dict(first_loss=float(loss), grad_err=err, loss=hist["loss"],
+                   step_device_ms=step_dev, step_top=step_top,
+                   step_ms=hist["step_ms"], launches=counts(),
+                   finite=bool(torch.isfinite(params).all()),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        if branch == "band":
+            key, stacked, _, _ = zshard_step_inputs(sc, "retile", dev)
+            after = fit.make_train_step_zsharded(key, 2, CaptureGrad(),
+                                                 sc["run"], True, "cuda",
+                                                 fmesh)
+            res["retile_loss_after"] = float(after(
+                params, None, stacked, targets, np.arange(2),
+                np.zeros(2, np.int32))[2])
+        out["fit"][branch] = res
+        del params
+        torch.cuda.empty_cache()
+        reached(f"fit {branch}")
+    return out
+
+
+def zshard_phase():
+    """The z-sharded grid at 512^3 (ROADMAP A1) on ZSHARD_RANKS ranks (see
+    ``zshard_rank``): the parent renders the single-card references (the
+    frame; the fit's targets; each branch's first-step gradient, saved
+    slab by slab in a scratch directory of the checkout and freed before
+    the ranks start), starts the ranks, and checks every rank's results.
+    Returns the summary and the z path's launches by kernel row."""
+    from tpuvr_torch.dist import launch
+    from tpuvr_torch.dist.workers import CaptureGrad
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.train import fit
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= ZSHARD_RANKS else "gloo"
+    world = ZSHARD_RANKS
+    layout = (f"{world} ranks, one a card, over NCCL"
+              if backend == "nccl"
+              else f"{world} ranks sharing card 0 over gloo (time-sliced: "
+              f"NCCL refuses two ranks on one card; these times say nothing "
+              f"of {world} cards)")
+    log(f"[zshard] 512^3 z-sharded grid: {layout}")
+    sc = zshard_scene()
+    dev = torch.device("cuda")
+    run_root = tempfile.mkdtemp(prefix=".chip_smoke_zshard_",
+                                dir=Path(__file__).resolve().parent)
+    t0 = time.time()
+    try:
+        grid = smoke_sphere(sc["n"], device=dev)
+        rgb, t = render.render_view(grid, sc["cam"], sc["run"])
+        targets = fit.render_all_views(grid, sc["cams"], sc["run"])
+        refs = {"rgb": rgb.cpu().numpy(), "t": t.cpu().numpy(),
+                "targets": targets.cpu().numpy(), "grads": {}}
+        del grid, rgb, t
+        ref_steps = {}
+        sz = sc["n"] // ZSHARD_FIT[1]
+        for branch in ("retile", "band"):
+            key, stacked, rows, r0s = zshard_step_inputs(sc, branch, dev)
+            step = fit.make_train_step(key, 2, CaptureGrad(), sc["run"],
+                                       True, "cuda", rows=rows)
+            _, grad, loss = step(fit.init_params(sc["shape"], True),
+                                 None, stacked, targets, np.arange(2), r0s)
+            paths = []
+            for d in range(ZSHARD_FIT[1]):
+                paths.append(f"{run_root}/grad_{branch}_z{d}.pt")
+                torch.save(grad[d * sz:(d + 1) * sz].cpu(), paths[-1])
+            refs["grads"][branch] = paths
+            ref_steps[branch] = dict(loss=float(loss), rows=rows,
+                                     scale=float(grad.abs().max()))
+            del grad, stacked
+        del targets
+        torch.cuda.empty_cache()
+        ref_s = time.time() - t0
+        log(f"[zshard] single-card references in {ref_s:.1f} s: "
+            f"{ref_steps}")
+        ranks = launch.spawn(zshard_rank, world, backend, "cuda",
+                             (refs, run_root, 3), timeout_s=600)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    seconds = time.time() - t0
+    check([r["rank"] for r in ranks] == list(range(world)), "zshard ranks")
+    summary = {"transport": backend, "ranks": world,
+               "cards": min(n_cards, world), "layout": layout,
+               "render_mesh": ZSHARD_RENDER, "fit_mesh": ZSHARD_FIT,
+               "grid": sc["n"], "references_s": ref_s, "render": {},
+               "fit": {}}
+    n_z = ZSHARD_RENDER[1]
+    # One frame a rank: K1 once over its slab; the fold's collectives, and
+    # the tiles' gather (one all-reduce).
+    frame_want = {"all_gather": {"collective_all_gather": 1},
+                  "ring": {"collective_exchange": n_z - 1},
+                  "retile": {"collective_all_to_all": 1}}
+    zero = ("sweep_bwd", "sweep_fwd_views", "sweep_bwd_views", "tau_sweep",
+            "tau_adj", "warp_rows_fwd", "warp_rows_bwd", "sweep_bwd_ring")
+    digests = {}
+    for fold, extra in frame_want.items():
+        rs = [r["render"][fold] for r in ranks]
+        want = {"sweep_fwd": 1, "collective_all_reduce": 1, **extra,
+                **{k: 0 for k in zero}}
+        for r in rs:
+            got = {k: r["launches"].get(k, 0) for k in want}
+            check(got == want, f"zshard render {fold}: launches {got}, "
+                  f"expected {want}")
+            check(r["finite"] and r["err_of_max"] <= 1e-5,
+                  f"zshard render {fold}: {r['err_of_max']:.3e} of max|rgb| "
+                  "against the single-card render (tol 1e-5)")
+        check(len({r["digest"] for r in rs}) == 1,
+              f"zshard render {fold}: the ranks' images differ")
+        digests[fold] = rs[0]["digest"]
+        summary["render"][fold] = dict(
+            ms_per_frame=rs[0]["ms"], ms_by_rank=[r["ms"] for r in rs],
+            err_of_max=max(r["err_of_max"] for r in rs),
+            device_ms=rs[0]["device_ms"], top=rs[0]["top"],
+            launches=rs[0]["launches"], digest=rs[0]["digest"])
+        by_rank = ", ".join(f"{r['ms']:.3f}" for r in rs)
+        log(f"[zshard] render 512^3 @ 1024^2 {ZSHARD_RENDER} {fold}: "
+            f"{rs[0]['ms']:.3f} ms/frame on rank 0 (ranks {by_rank}), "
+            f"{summary['render'][fold]['err_of_max']:.3e} of max|rgb| vs "
+            f"the single-card render (tol 1e-5); rank 0 device time "
+            f"{rs[0]['device_ms']} ms a frame, by kernel {rs[0]['top']}; "
+            f"rank 0 launches and collectives a frame {rs[0]['launches']}")
+    summary["render_digests_equal"] = len(set(digests.values())) == 1
+    n_data, nz_fit = ZSHARD_FIT
+    for branch, ref in ref_steps.items():
+        fs = [r["fit"][branch] for r in ranks]
+        loss = fs[0]["loss"]
+        check(all(f["loss"] == loss for f in fs),
+              f"zshard fit {branch}: the ranks' losses differ")
+        check(len(loss) == ZSHARD_STEPS and all(np.isfinite(loss))
+              and all(f["finite"] for f in fs), f"zshard fit {branch} losses")
+        if branch == "retile":
+            fell = loss[-1] < loss[0]
+        else:  # each band step draws its rows: judge the whole images
+            after = fs[0]["retile_loss_after"]
+            check(all(f["retile_loss_after"] == after for f in fs),
+                  "zshard band: the ranks' evaluations differ")
+            fell = after < ranks[0]["fit"]["retile"]["first_loss"]
+        check(fell, f"zshard fit {branch}: the loss did not fall")
+        err = max(f["grad_err"] for f in fs) / ref["scale"]
+        check(err <= 1e-5, f"zshard fit {branch}: first-step gradient "
+              f"{err:.3e} of max|grad| from the single-card step (tol 1e-5)")
+        loss_err = max(abs(f["first_loss"] - ref["loss"]) for f in fs)
+        check(loss_err <= 1e-6 * ref["loss"],
+              f"zshard fit {branch}: first-step loss off by {loss_err:.3e}")
+        steps, views = ZSHARD_STEPS, 2
+        buckets = 4  # fit_grid's grad_buckets default
+        if branch == "retile":
+            per_step = {"collective_all_to_all": 2 * views,
+                        "collective_exchange": 2 * views,
+                        "collective_all_reduce": 1 + buckets}
+        else:
+            per_step = {"collective_all_gather": 2 * views,
+                        "collective_all_reduce": buckets}
+        want = {"sweep_fwd": views * steps, "sweep_bwd": views * steps,
+                "collective_broadcast": 2,
+                **{k: v * steps for k, v in per_step.items()},
+                **{k: 0 for k in zero if k != "sweep_bwd"}}
+        for f in fs:
+            got = {k: f["launches"].get(k, 0) for k in want}
+            check(got == want, f"zshard fit {branch}: launches {got}, "
+                  f"expected {want}")
+        ms = [float(np.mean(f["step_ms"][1:])) for f in fs]
+        summary["fit"][branch] = dict(
+            rows=ref["rows"], loss=loss, ms_per_step=ms[0],
+            ms_per_step_by_rank=ms, first_step_ms=fs[0]["step_ms"][0],
+            grad_err_of_max=err, first_loss=fs[0]["first_loss"],
+            single_card_loss=ref["loss"],
+            step_device_ms=fs[0]["step_device_ms"], step_top=fs[0]["step_top"],
+            peak_gib_by_rank=[f["peak_gib"] for f in fs],
+            launches=fs[0]["launches"],
+            **({"retile_loss_after": fs[0]["retile_loss_after"]}
+               if branch == "band" else {}))
+        by_rank = ", ".join(f"{m:.1f}" for m in ms)
+        peaks = ", ".join(f"{f['peak_gib']:.2f}" for f in fs)
+        trail = " -> ".join(f"{x:.6f}" for x in loss)
+        log(f"[zshard] fit 512^3, 2 views at 256^2, {ZSHARD_FIT} {branch} "
+            f"(rows {ref['rows'] or 'all'}, {steps} steps): {ms[0]:.1f} "
+            f"ms/step after the first on rank 0 (ranks {by_rank}), loss "
+            f"{trail}"
+            + (f", whole-image loss {fs[0]['retile_loss_after']:.6f} after "
+               f"(from {ranks[0]['fit']['retile']['first_loss']:.6f})"
+               if branch == "band" else "")
+            + f"; rank 0 device time {fs[0]['step_device_ms']} ms a step, "
+            f"by kernel {fs[0]['step_top']}"
+            + f"; first-step gradient {err:.3e} of max|grad| vs the "
+            f"single-card step (tol 1e-5); peak GiB by rank {peaks}; rank 0 "
+            f"launches and collectives {fs[0]['launches']}")
+    summary["seconds"] = seconds
+    log(f"[zshard] phase done in {seconds:.1f} s")
+    launches = {
+        "sweep_fwd": {"zshard_render": sum(
+            summary["render"][f]["launches"]["sweep_fwd"]
+            for f in frame_want),
+            **{f"zshard_fit_{b}": summary["fit"][b]["launches"]["sweep_fwd"]
+               for b in ref_steps}},
+        "sweep_bwd": {f"zshard_fit_{b}":
+                      summary["fit"][b]["launches"]["sweep_bwd"]
+                      for b in ref_steps}}
+    return summary, launches
+
+
 def finish(t_start):
     """The cards, the card's name and power limit, and the contract line."""
     cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
@@ -2228,11 +2590,12 @@ def finish(t_start):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
-                        choices=("all", "dist", "warp", "bwd", "fwd",
-                                 "light"),
+                        choices=("all", "dist", "zshard", "warp", "bwd",
+                                 "fwd", "light"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
-                             "alone; 'warp': build, then the row warp's "
+                             "alone; 'zshard': build, then the z-sharded "
+                             "grid at 512^3 alone; 'warp': build, then the row warp's "
                              "kernels (K7, K8) alone; 'bwd': build, then "
                              "the backward sweep (K6, K3) alone, with "
                              "digests of its gradients and its stages' "
@@ -2265,6 +2628,7 @@ def main(argv=None):
     # 1. Build.
     t0 = time.time()
     logs = _build.build({"fwd": ("sweep_fwd",),
+                         "zshard": ("sweep_fwd", "sweep_bwd"),
                          "light": ("tau_sweep", "tau_adj")}.get(
                              opts.phase, _build.SOURCES))
     log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
@@ -2275,6 +2639,10 @@ def main(argv=None):
         dist, ring_entry, _ = dist_phase()
         log(json.dumps({"dist": dist}))
         log(json.dumps({"kernels": [ring_entry]}))
+        return finish(t_start)
+    if opts.phase == "zshard":
+        zshard, _ = zshard_phase()
+        log(json.dumps({"zshard": zshard}))
         return finish(t_start)
     if opts.phase == "warp":
         log(json.dumps({"warp": warp_kernels(dev)}))
@@ -2490,6 +2858,8 @@ def main(argv=None):
     dist, ring_entry, dist_fits = dist_phase()
     for mode in DIST_MODES:
         train[f"dist_{mode}"] = {"launches": dist_fits[0][mode]["launches"]}
+    # 6. The z-sharded grid at 512^3; rank 0's counts join the launches.
+    zshard, z_launches = zshard_phase()
     train_paths = ("c4", "c4_fused", "c4_loop", "c4_fused_loop", "c4_rows",
                    "c4_fused_rows", "psnr_rows", "lit",
                    *(f"dist_{mode}" for mode in DIST_MODES))
@@ -2500,14 +2870,19 @@ def main(argv=None):
                      "tau_sweep_dirs", "tau_adj_dirs", "sweep_fwd_views",
                      "sweep_bwd_views", "warp_rows_fwd", "warp_rows_bwd")}
 
+    for name, by_path in z_launches.items():
+        launches_by_path[name].update(by_path)
+
     def train_launches(name):
-        return sum(train[p]["launches"][name] for p in train_paths)
+        return (sum(train[p]["launches"][name] for p in train_paths)
+                + sum(n for p, n in z_launches.get(name, {}).items()
+                      if p.startswith("zshard_fit")))
 
     def bound(bytes_ms, ops_ms):
         return {"bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
-    # 6. Summary.
+    # 7. Summary.
     head = sweep_ms["headline"]
     bc4 = bwd["by_config"]["c4"]
     kernels = [
@@ -2688,6 +3063,7 @@ def main(argv=None):
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
     log(json.dumps({"dist": dist}))
+    log(json.dumps({"zshard": zshard}))
     log(json.dumps({"kernels": kernels}))
     return finish(t_start)
 

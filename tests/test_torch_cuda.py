@@ -1077,3 +1077,76 @@ def test_sweep_fwd_degenerate_coefficients(card, b):
               torch.full((s,), b[1], device=card))
     dt = (1.0 + torch.rand((24, 72), generator=gen)).to(card)
     _fwd_hold((grid, coeffs, torch.ones(s, device=card), dt))
+
+
+def test_warp_to_pixels_owned_on_the_card_matches_cpu(card):
+    """The z trainer's owned-row warp on CUDA tensors: the CPU's masks, and
+    its images within 1e-6, for each of 4 row blocks of a top-down
+    perspective view."""
+    from tpuvr_torch.io.synth import orbit_cameras
+    from tpuvr_torch.ops.geometry import view_geometry, warp_to_pixels_owned
+
+    cam = orbit_cameras(8, 24, res=40, elevation_deg=75.0)[0]
+    _, _, geom, _ = view_geometry(cam, (24, 24, 24, 4))
+    n_v, n_u = geom["dt"].shape
+    inter = torch.rand((n_v + 1, n_u, 4),
+                       generator=torch.Generator().manual_seed(2))
+    rows = n_v // 4
+    for b in range(4):
+        block = inter[b * rows:(b + 1) * rows + 1]
+        args = (geom["lattice"], geom["uv"], b * rows, rows, n_v)
+        img, mask = warp_to_pixels_owned(block, *args)
+        k_img, k_mask = warp_to_pixels_owned(
+            block.to(card), *(a.to(card) for a in args[:2]), *args[2:])
+        assert torch.equal(k_mask.cpu(), mask) and bool(mask.any())
+        torch.testing.assert_close(k_img.cpu(), img, rtol=0, atol=1e-6)
+
+
+def test_retile_fold_on_one_rank_matches_the_render(card):
+    """A (1, 1) z mesh on one gloo rank on the card: the gathered, ring and
+    retiled folds of a single slab are the single-card render (1e-5)."""
+    from tpuvr_torch.dist import launch, workers
+    from tpuvr_torch.io.synth import orbit_cameras
+
+    cam = orbit_cameras(8, 24, res=40, elevation_deg=75.0)[0]
+    grid = smoke_sphere(24, device="cpu")
+    cfg = RenderConfig(early_stop_eps=0.0)
+    folds = ("all_gather", "ring", "retile")
+    out = launch.spawn(workers.run_suite, 1, "gloo", "cuda", ([
+        (fold, workers.zrender_case, dict(layout=(1, 1), grid=grid.numpy(),
+                                          cam=cam, cfg=cfg, fold=fold), {})
+        for fold in folds], "cuda"), timeout_s=300)
+    rgb, t = render.render_view(grid.to(card), cam, cfg)
+    for fold in folds:
+        got_rgb, got_t = out[0][fold]
+        np.testing.assert_allclose(got_rgb, rgb.cpu().numpy(), rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got_t, t.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", [(1, 2), (2, 1)], ids=str)
+def test_z_mesh_exchanges_over_gloo_on_the_card(card, layout):
+    """The z mesh's exchanges on CUDA tensors over gloo, 2 ranks sharing the
+    card: the halo ``exchange`` and the ``all_to_all`` (both one
+    ``all_to_all_single``, the route gloo runs for CUDA tensors where it
+    refuses point-to-point sends and list ``all_to_all``) and
+    ``all_gather``, each counted once."""
+    from tpuvr_torch.dist import launch, workers
+
+    out = launch.spawn(workers.run_suite, 2, "gloo", "cuda", ([
+        ("x", workers.zcollectives_case, dict(layout=layout), {})],
+        "cuda"), timeout_s=300)
+    n_data, n_z = layout
+    x = np.arange(6.0).reshape(2, 3)
+    for r in range(2):
+        halo, a2a, gz, gd, counts = out[r]["x"]
+        np.testing.assert_array_equal(halo, x + 10 if r == 0 else 0 * x)
+        i, d = divmod(r, n_z)
+        z_ranks = [i * n_z + k for k in range(n_z)]
+        np.testing.assert_array_equal(
+            a2a, [[2.0 * d + 100 * s, 2.0 * d + 1 + 100 * s]
+                  for s in z_ranks])
+        np.testing.assert_array_equal(gz, [x + 10 * s for s in z_ranks])
+        np.testing.assert_array_equal(
+            gd, [x + 10 * (k * n_z + d) for k in range(n_data)])
+        assert counts == {"exchange": 1, "all_to_all": 1, "all_gather": 2}

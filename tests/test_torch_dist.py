@@ -37,7 +37,6 @@ Tolerances (f32):
 import dataclasses
 import functools
 import os
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -50,16 +49,20 @@ from jax.sharding import PartitionSpec as P
 from tpuvr.config import RenderConfig as JRenderConfig
 from tpuvr.config import TrainConfig as JTrainConfig
 from tpuvr.dist import replicated as jdist
+from tpuvr.dist.sharded_grid import grid_mesh as jgrid_mesh
+from tpuvr.dist.sharded_grid import render_view_zsharded as jrender_zsharded
 from tpuvr.io.synth import smoke_sphere
 from tpuvr.kernels.ring_bwd import sweep_bwd_ring as jsweep_bwd_ring
 from tpuvr.ops import vjp as jvjp
 from tpuvr.ref.camera import OrthoCamera, look_at_perspective
 from tpuvr.train import fit as jfit
-from tpuvr_torch.config import RenderConfig, TrainConfig
+from tpuvr_torch.config import LightingConfig, RenderConfig, TrainConfig
 from tpuvr_torch.convert import camera_from_fields
 from tpuvr_torch.dist import launch, workers
-from tpuvr_torch.dist.init import DataMesh
+from tpuvr_torch.dist.init import DataMesh, GridMesh
 from tpuvr_torch.dist.replicated import render_view_dp
+from tpuvr_torch.dist.retile import render_view_retiled
+from tpuvr_torch.dist.sharded_grid import render_view_zsharded
 from tpuvr_torch.kernels.ring_bwd import sweep_bwd_ring
 from tpuvr_torch.kernels.sweep_torch import (
     sweep_fwd_torch,
@@ -604,14 +607,67 @@ def test_indivisible_rows_refused_as_in_jax(devices8, scenes):
                       mesh=three, device="cpu")
 
 
-def test_z_mesh_refused():
-    """The z-sharded grid is a later slice: a mesh with a "z" axis raises
-    NotImplementedError, lighting and grad_ring or not (the JAX trainer
-    runs it and drops both silently)."""
-    z_mesh = SimpleNamespace(shape={"data": 2, "z": 2}, rank=0, world=4)
-    grid = np.zeros((4, 4, 4, 4), np.float32)
-    cam = _tcam(_render_cams(4, 4)[0])
-    for kw in ({}, dict(grad_ring=True, bwd_chunks=2)):
-        with pytest.raises(NotImplementedError, match="'z' axis"):
-            tfit.fit_grid(np.zeros((1, 4, 4, 3)), [cam], grid.shape,
-                          mesh=z_mesh, device="cpu", **kw)
+def _hand_zmesh(n_data, n_z):
+    """Rank 0 of an n_data x n_z mesh made by hand, with no process group:
+    a collective on it would fail, so a refusal must come first."""
+    return GridMesh(n_data, n_z, 0, data=DataMesh(None, 0, n_data),
+                    z=DataMesh(None, 0, n_z),
+                    flat=DataMesh(None, 0, n_data * n_z))
+
+
+# fit_grid on a 2 x 2 mesh: (camera index of _render_cams(4, res), res,
+# grid Z, fit_grid keywords, environment, the message's words).
+Z_REFUSALS = {
+    "lighting": (0, 4, 4, dict(lighting=LightingConfig(mode="lightvolume")),
+                 {}, "lighting"),
+    "grad_ring": (0, 4, 4, dict(grad_ring=True, bwd_chunks=2), {},
+                  "grad_ring"),
+    "bwd_chunks": (0, 4, 4, dict(bwd_chunks=2), {}, "bwd_chunks"),
+    "warp_rows": (0, 4, 4, {}, {"TPUVR_WARP": "rows"}, "TPUVR_WARP=rows"),
+    "fused": (0, 4, 4, dict(fused=True), {}, "fused mode"),
+    "cross_axis": (1, 4, 4, {}, {}, "z-sharded training requires"),
+    "indivisible_z": (0, 4, 5, {}, {}, "Z=5 not divisible by z-mesh 2"),
+    "indivisible_rows": (0, 6, 4, {}, {}, "6 rows not divisible by mesh 2x2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(Z_REFUSALS))
+def test_z_mesh_refused(devices8, case):
+    """What fit_grid cannot honour on a ('data', 'z') mesh raises
+    ValueError before any collective: lighting, grad_ring, bwd_chunks > 1
+    and TPUVR_WARP=rows (the JAX trainer drops all four silently there),
+    the fused mode, and, as in the JAX package (with its message, checked
+    on its 2 x 2 mesh), views that do not sweep the z axis and a Z the z
+    ranks do not divide; and intermediate rows the ranks do not divide."""
+    cam_i, res, z, kw, env, words = Z_REFUSALS[case]
+    jcam = _render_cams(4, res)[cam_i]
+    shape = (z, 4, 4, 4)
+    targets = np.zeros((1, res, res, 3), np.float32)
+    with _env(env), pytest.raises(ValueError, match=words):
+        tfit.fit_grid(targets, [_tcam(jcam)], shape, mesh=_hand_zmesh(2, 2),
+                      device="cpu", **kw)
+    if case in ("cross_axis", "indivisible_z"):
+        with pytest.raises(ValueError, match=words):
+            jfit.fit_grid(targets, [jcam], shape,
+                          JTrainConfig(steps=1, ckpt_every=0),
+                          mesh=jgrid_mesh(2, 2))
+
+
+def test_z_render_refusals_match_jax(devices8):
+    """The z render's divisibility refusals (slices over 'z', rows over
+    every rank) in both packages, before any collective."""
+    grid = np.zeros((6, 6, 6, 4), np.float32)
+    jcam = _render_cams(6, 6)[0]
+    for layout, words in (((1, 4), "6 slices not divisible by z-mesh 4"),
+                          ((2, 2), "6 rows not divisible by mesh 2x2")):
+        with pytest.raises(ValueError, match=words):
+            jrender_zsharded(jnp.asarray(grid), jcam, jgrid_mesh(*layout),
+                             JRCFG, impl="xla")
+        for fold in ("all_gather", "ring"):
+            with pytest.raises(ValueError, match=words):
+                render_view_zsharded(grid, _tcam(jcam),
+                                     _hand_zmesh(*layout), RCFG,
+                                     device="cpu", fold=fold)
+        with pytest.raises(ValueError, match=words):
+            render_view_retiled(grid, _tcam(jcam), _hand_zmesh(*layout),
+                                RCFG, device="cpu")

@@ -7,7 +7,6 @@ import os
 import subprocess
 import sys
 from pathlib import Path
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -128,16 +127,39 @@ def test_card_ops_are_autograd_functions(monkeypatch):
     assert calls[-1] == "tau_adj"
 
 
-def test_fit_grid_refuses_a_mesh():
-    """A mesh with a "z" axis (the z-sharded grid, a later slice) raises
-    before anything runs, where the JAX package would silently drop
-    lighting and grad_ring on it."""
+# What fit_grid refuses on a ('data', 'z') mesh: (fit_grid keywords,
+# environment, the message's words). The first four the JAX package drops
+# silently on such a mesh.
+Z_MESH_REFUSALS = {
+    "lighting": (dict(lighting=configs.CONFIGS["c3"]["lighting"]), {},
+                 "lighting"),
+    "grad_ring": (dict(grad_ring=True, bwd_chunks=2), {}, "grad_ring"),
+    "bwd_chunks": (dict(bwd_chunks=2), {}, "bwd_chunks"),
+    "warp_rows": ({}, {"TPUVR_WARP": "rows"}, "TPUVR_WARP=rows"),
+    "fused": (dict(fused=True), {}, "fused mode"),
+    "indivisible_z": (dict(grid_shape=(5, 4, 4, 4)), {},
+                      "Z=5 not divisible by z-mesh 2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(Z_MESH_REFUSALS))
+def test_fit_grid_refuses_a_mesh(case, monkeypatch):
+    """On a ('data', 'z') mesh (here rank 0 of a 1 x 2 mesh made by hand,
+    with no process group: a collective would fail) fit_grid raises
+    ValueError before anything runs for each setting it cannot honour,
+    where the JAX package would drop the first four silently."""
+    from tpuvr_torch.dist.init import DataMesh, GridMesh
     from tpuvr_torch.train import fit
 
-    z_mesh = SimpleNamespace(shape={"data": 1, "z": 2}, rank=0, world=2)
-    with pytest.raises(NotImplementedError, match="'z' axis"):
+    kw, env, words = Z_MESH_REFUSALS[case]
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    kw = dict(dict(grid_shape=(4, 4, 4, 4)), **kw)
+    z_mesh = GridMesh(1, 2, 0, data=DataMesh(None, 0, 1),
+                      z=DataMesh(None, 0, 2), flat=DataMesh(None, 0, 2))
+    with pytest.raises(ValueError, match=words):
         fit.fit_grid(np.zeros((1, 4, 4, 3)), [configs.front_ortho(4, 4)],
-                     (4, 4, 4, 4), mesh=z_mesh, device="cpu")
+                     mesh=z_mesh, device="cpu", **kw)
 
 
 def test_build_digest_tracks_sources(tmp_path, monkeypatch):

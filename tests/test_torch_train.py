@@ -10,7 +10,6 @@ are compared only where |g| > 1e-6, well above the gradient's roundoff
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +27,7 @@ from tpuvr.ref.camera import look_at_perspective
 from tpuvr.train import fit as jfit
 from tpuvr_torch.config import LightingConfig, RenderConfig, TrainConfig
 from tpuvr_torch.convert import camera_from_fields, train_state_from_numpy
+from tpuvr_torch.dist.init import DataMesh, GridMesh
 from tpuvr_torch.ops import geometry as tgeo
 from tpuvr_torch.train import fit as tfit
 
@@ -359,10 +359,14 @@ def test_fused_matches_materialized(scene, tmp_path, steps_per_call):
 
 def test_fit_grid_refuses_unported_options(scene, tmp_path):
     shape, _, tcams, targets = scene
-    z_mesh = SimpleNamespace(shape={"data": 2, "z": 2}, rank=0, world=4)
-    with pytest.raises(NotImplementedError, match="'z' axis"):
-        tfit.fit_grid(targets, tcams, shape, mesh=z_mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="'z' axis"):
+    # A ('data', 'z') mesh made by hand (no process group): its refusals
+    # come before any collective; the replicated step is not for it.
+    z_mesh = GridMesh(2, 2, 0, data=DataMesh(None, 0, 2),
+                      z=DataMesh(None, 0, 2), flat=DataMesh(None, 0, 4))
+    with pytest.raises(ValueError, match="grad_ring"):
+        tfit.fit_grid(targets, tcams, shape, mesh=z_mesh, device="cpu",
+                      grad_ring=True)
+    with pytest.raises(ValueError, match="make_train_step_zsharded"):
         tfit.make_train_step((2, False), 2, tfit.Adam(0.1), RCFG, True, None,
                              mesh=z_mesh, grad_ring=True)
     for kw in (dict(grad_ring=True), dict(bwd_chunks=2)):

@@ -84,10 +84,9 @@ class MeshConfig:
 
     Attributes:
       data: ranks sharding rays (the replicated-grid data-parallel path).
-      zshard: ranks sharding the grid in z-slabs; 1 disables grid
-        sharding. Values > 1 are kept so a config moves across unchanged,
-        but ``fit_grid`` refuses a mesh with a "z" axis > 1 (not ported
-        yet).
+      zshard: ranks sharding the grid in z-slabs (the ``'z'`` axis of
+        ``tpuvr_torch.dist.grid_mesh(data, zshard)``); 1 disables grid
+        sharding.
       grad_buckets: all-reduces the grid gradient is cut into after the
         backward (the reduction that does not overlap it).
       bwd_chunks: slabs the backward sweep is cut into; > 1 all-reduces

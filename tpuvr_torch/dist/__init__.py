@@ -1,17 +1,23 @@
 """Distribution over ranks: one process per card, ``torch.distributed``.
 
-- :mod:`tpuvr_torch.dist.init`: :func:`initialize`, the mesh of ranks
-  (:class:`DataMesh`, :func:`data_mesh`) and the counted collectives
+- :mod:`tpuvr_torch.dist.init`: :func:`initialize`, the meshes of ranks
+  (:class:`DataMesh`, :func:`data_mesh`; the ``('data', 'z')``
+  :class:`GridMesh`, :func:`grid_mesh`) and the counted collectives
   (:func:`bucketed_all_reduce` among them);
 - :mod:`tpuvr_torch.dist.replicated`: ray data parallelism over a
   replicated grid (``render_view_dp``; the trainer's mesh step is in
   ``tpuvr_torch.train.fit``);
+- :mod:`tpuvr_torch.dist.sharded_grid` and :mod:`tpuvr_torch.dist.retile`:
+  the z-sharded grid's render and its segment folds (the trainer's z step
+  is in ``tpuvr_torch.train.fit``);
 - :mod:`tpuvr_torch.dist.launch`: ``spawn``, ranks on one host.
 """
 
 from tpuvr_torch.dist.init import (  # noqa: F401
     DataMesh,
+    GridMesh,
     bucketed_all_reduce,
     data_mesh,
+    grid_mesh,
     initialize,
 )

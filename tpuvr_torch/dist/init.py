@@ -2,13 +2,16 @@
 
 The JAX package runs one process over a ``Mesh`` of devices. The port runs
 one process per card (SPMD): every rank calls the same entry point with
-the same arguments, and :class:`DataMesh` stands where that package's
-``Mesh`` stood, so code written against the JAX names (``mesh.shape
-["data"]``, ``mesh.axis_names``) reads the same.
+the same arguments, and :class:`DataMesh` (the 1-D ``'data'`` mesh) or
+:class:`GridMesh` (the 2-D ``('data', 'z')`` mesh of the z-sharded grid)
+stands where that package's ``Mesh`` stood, so code written against the
+JAX names (``mesh.shape["data"]``, ``mesh.axis_names``) reads the same.
 
-Every collective the port issues goes through :func:`all_reduce` or
-:func:`broadcast` here and is counted in :data:`collectives`, so a run can
-show what it put on the wire.
+Every collective the port issues goes through a function here
+(:func:`all_reduce`, :func:`broadcast`, :func:`all_to_all`,
+:func:`all_gather`, :func:`exchange`) and is counted in
+:data:`collectives`, so a run can show what it put on the wire. Each of
+them takes one route over gloo and NCCL, for CPU and CUDA tensors alike.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import ClassVar, Optional
 import torch
 import torch.distributed as dist
 
-# Collectives issued so far, by kind ("all_reduce", "broadcast").
+# Collectives issued so far, by kind ("all_reduce", "broadcast",
+# "all_to_all", "all_gather", "exchange").
 collectives: collections.Counter[str] = collections.Counter()
 
 
@@ -39,6 +43,57 @@ class DataMesh:
     @property
     def shape(self) -> dict:
         return {"data": self.world}
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """The 2-D ``('data', 'z')`` mesh of the z-sharded grid (the JAX
+    package's ``grid_mesh``): rays row-sharded over ``'data'``, the grid
+    slab-sharded over ``'z'``. Rank ``r = i * n_z + d`` sits at data index
+    ``i`` and z index ``d`` (that package's ``devices.reshape(n_data,
+    n_z)`` order). ``data`` is the :class:`DataMesh` of the ranks sharing
+    ``d`` (one per slab), ``z`` the one of the ranks sharing ``i``; ``flat``
+    spans every rank in rank order."""
+
+    n_data: int
+    n_z: int
+    rank: int
+    data: DataMesh
+    z: DataMesh
+    flat: DataMesh
+    axis_names: ClassVar[tuple] = ("data", "z")
+
+    @property
+    def shape(self) -> dict:
+        return {"data": self.n_data, "z": self.n_z}
+
+    @property
+    def world(self) -> int:
+        return self.n_data * self.n_z
+
+
+def grid_mesh(n_data: int = 1, n_z: int = 1) -> GridMesh:
+    """The ``('data', 'z')`` mesh over every rank of the default group,
+    made once ``torch.distributed`` is up (a ValueError unless the world
+    has ``n_data * n_z`` ranks). Creating a process group is collective:
+    every rank creates every group, the n_z ``'data'`` groups and then the
+    n_data ``'z'`` groups, in the same order."""
+    if not dist.is_initialized():
+        raise RuntimeError("torch.distributed is not initialized; call "
+                           "tpuvr_torch.dist.initialize first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != n_data * n_z:
+        raise ValueError(f"a {n_data}x{n_z} mesh needs {n_data * n_z} "
+                         f"ranks, the world has {world}")
+    i, d = divmod(rank, n_z)
+    data_groups = [dist.new_group([k * n_z + dd for k in range(n_data)])
+                   for dd in range(n_z)]
+    z_groups = [dist.new_group([ii * n_z + k for k in range(n_z)])
+                for ii in range(n_data)]
+    return GridMesh(n_data, n_z, rank,
+                    data=DataMesh(data_groups[d], i, n_data),
+                    z=DataMesh(z_groups[i], d, n_z),
+                    flat=DataMesh(None, rank, world))
 
 
 def data_mesh(group=None) -> DataMesh:
@@ -127,3 +182,46 @@ def gather_tiles(tile: torch.Tensor, mesh: DataMesh, dim: int):
     full.narrow(dim, mesh.rank * n, n).copy_(tile)
     all_reduce(full, mesh)
     return full
+
+
+def all_to_all(chunks: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """``chunks[j]`` (leading dim = the mesh's size) goes to rank j; returns
+    what every rank sent this one, ``out[j]`` from rank j (the JAX
+    package's tiled ``all_to_all``)."""
+    collectives["all_to_all"] += 1
+    chunks = chunks.contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=mesh.group)
+    return out
+
+
+def all_gather(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Every rank's equal ``t``, stacked on a new leading dim in rank
+    order, on every rank."""
+    collectives["all_gather"] += 1
+    outs = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(outs, t.contiguous(), group=mesh.group)
+    return torch.stack(outs)
+
+
+def exchange(t: torch.Tensor, pairs, mesh: DataMesh) -> torch.Tensor:
+    """The JAX package's ``ppermute``: for each ``(src, dst)`` of ``pairs``
+    (mesh ranks, each at most once a source and once a destination), rank
+    ``dst`` receives rank ``src``'s ``t``; a rank that is no destination
+    receives zeros. Every rank calls it with the same ``pairs`` and an
+    equal ``t``. One ``all_to_all_single`` with one non-empty split each
+    way, so only the pairs' bytes move."""
+    collectives["exchange"] += 1
+    dst = dict(pairs).get(mesh.rank)
+    src = {b: a for a, b in pairs}.get(mesh.rank)
+    n = t.numel()
+    flat = t.contiguous().reshape(-1)
+    send = flat if dst is not None else flat[:0]
+    recv = torch.zeros(n if src is not None else 0, dtype=t.dtype,
+                       device=t.device)
+    dist.all_to_all_single(
+        recv, send,
+        output_split_sizes=[n if j == src else 0 for j in range(mesh.world)],
+        input_split_sizes=[n if j == dst else 0 for j in range(mesh.world)],
+        group=mesh.group)
+    return recv.reshape(t.shape) if src is not None else torch.zeros_like(t)

@@ -184,3 +184,90 @@ def resume_case(mesh, *, device, run_dirs, **fit_kw):
     ``run_dirs[r]`` (ranks on hosts that share no directory)."""
     return fit_case(mesh, device=device, run_dir=run_dirs[mesh.rank],
                     resume=True, **fit_kw)
+
+
+# The z-sharded grid. Each ('data', 'z') layout's mesh is made once per
+# rank (making process groups is collective, and every rank runs the same
+# cases in the same order).
+_GRID_MESHES = {}
+
+
+def _grid_mesh(layout):
+    from tpuvr_torch.dist.init import grid_mesh
+
+    if layout not in _GRID_MESHES:
+        _GRID_MESHES[layout] = grid_mesh(*layout)
+    return _GRID_MESHES[layout]
+
+
+def zrender_case(mesh, *, device, layout, grid, cam, cfg, fold):
+    """The z-sharded render of a numpy grid on the ``layout`` mesh with
+    ``fold``: "all_gather" or "ring" (``render_view_zsharded``), or
+    "retile" (``render_view_retiled``)."""
+    from tpuvr_torch.dist.retile import render_view_retiled
+    from tpuvr_torch.dist.sharded_grid import render_view_zsharded
+
+    zmesh = _grid_mesh(tuple(layout))
+    if fold == "retile":
+        return render_view_retiled(_t(grid, device), cam, zmesh, cfg,
+                                   device=device)
+    return render_view_zsharded(_t(grid, device), cam, zmesh, cfg,
+                                device=device, fold=fold)
+
+
+def zstep_case(mesh, *, device, layout, key, n_views, render_cfg, params,
+               stacked, targets, pick, r0s, rows=None):
+    """One ``make_train_step_zsharded`` step on the ``layout`` mesh from
+    raw (Z, Y, X, 4) ``params``, each rank passing its slab: (loss, the
+    slab's gradient, the rank's part of it before the sum over
+    ``'data'``)."""
+    from tpuvr_torch.train.fit import make_train_step_zsharded
+
+    from tpuvr_torch.train import fit
+
+    zmesh = _grid_mesh(tuple(layout))
+    sz = params.shape[0] // zmesh.shape["z"]
+    slab = params[zmesh.z.rank * sz:(zmesh.z.rank + 1) * sz]
+    step = make_train_step_zsharded(key, n_views, CaptureGrad(), render_cfg,
+                                    True, None, zmesh, rows=rows)
+    geom = {k: _t(v, device) for k, v in stacked.items()}
+    # The rank's own gradient before its sum over 'data', for the sum's
+    # roundoff bound.
+    partial, reduce = [], fit.bucketed_all_reduce
+
+    def record(grads, data, n_buckets):
+        partial.append(grads.clone())
+        return reduce(grads, data, n_buckets)
+
+    fit.bucketed_all_reduce = record
+    try:
+        _, grad, loss = step(_t(slab, device), None, geom,
+                             _t(targets, device), pick, r0s)
+    finally:
+        fit.bucketed_all_reduce = reduce
+    return float(loss), grad, partial[0]
+
+
+def zfit_case(mesh, *, device, layout, **fit_kw):
+    """:func:`fit_case` on the ``layout`` mesh: the loss history and this
+    rank's slab of the final raw parameters."""
+    return fit_case(_grid_mesh(tuple(layout)), device=device, **fit_kw)
+
+
+def zcollectives_case(mesh, *, device, layout):
+    """The z mesh's exchanges on small tensors of this rank's values: a
+    halo ``exchange`` over the flat ring (b -> b - 1), an ``all_to_all``
+    over ``'z'``, ``all_gather`` over ``'z'`` and over ``'data'``, and the
+    collectives they counted."""
+    from tpuvr_torch.dist import init
+
+    zmesh = _grid_mesh(tuple(layout))
+    before = init.collectives.copy()
+    x = torch.arange(6.0, device=device).reshape(2, 3) + 10 * zmesh.rank
+    halo = init.exchange(x, [(b, b - 1) for b in range(1, zmesh.world)],
+                         zmesh.flat)
+    chunks = (torch.arange(2.0 * zmesh.n_z, device=device).reshape(
+        zmesh.n_z, 2) + 100 * zmesh.rank)
+    return (halo, init.all_to_all(chunks, zmesh.z),
+            init.all_gather(x, zmesh.z), init.all_gather(x, zmesh.data),
+            dict(init.collectives - before))

@@ -325,3 +325,40 @@ def warp_to_pixels_band(inter_band, lattice, uv_pixel, r0):
     yb = y - float(r0)
     mask = (yb >= 0.0) & (yb <= rows - 1)
     return _bilinear(inter_band, x, yb, rows, n_u), mask
+
+
+def warp_to_pixels_owned(inter_halo, lattice, uv_pixel, r0: int,
+                         rows_own: int, n_v: int):
+    """Pixel warp from the intermediate rows a rank owns (the z-sharded
+    trainer's row block, the JAX package's ``warp_to_pixels_owned``).
+
+    ``inter_halo`` is (rows_own + 1, n_u, C): the block's rows
+    [r0, r0 + rows_own) of the n_v-row image and one halo row, the next
+    block's first. A pixel belongs to the block whose rows hold its clipped
+    base row ``y0 = clip(floor(y), 0, n_v - 2)``: the blocks' masks are
+    disjoint and cover every pixel, with the taps of
+    :func:`warp_to_pixels_dynamic` (the last block's pixels never read its
+    halo row, which is zeros, because of the clip at n_v - 2).
+
+    Returns (img (H, W, C), mask (H, W) bool): ``img`` valid where ``mask``.
+    """
+    n_u = inter_halo.shape[1]
+    u0, du, v0, dv = lattice[0], lattice[1], lattice[2], lattice[3]
+    x = (uv_pixel[..., 0] - u0) / du
+    y = (uv_pixel[..., 1] - v0) / dv
+    x0 = torch.clamp(torch.floor(x), 0, n_u - 2)
+    y0 = torch.clamp(torch.floor(y), 0, n_v - 2)
+    fx = torch.clamp(x - x0, 0.0, 1.0)
+    fy = torch.clamp(y - y0, 0.0, 1.0)
+    y0 = y0.long()
+    mask = (y0 >= r0) & (y0 < r0 + rows_own)
+    yl = torch.clamp(y0 - r0, 0, rows_own - 1)
+    x0 = x0.long()
+    g = inter_halo
+    img = (
+        g[yl, x0] * ((1 - fy) * (1 - fx))[..., None]
+        + g[yl, x0 + 1] * ((1 - fy) * fx)[..., None]
+        + g[yl + 1, x0] * (fy * (1 - fx))[..., None]
+        + g[yl + 1, x0 + 1] * (fy * fx)[..., None]
+    )
+    return img, mask

@@ -37,8 +37,14 @@ then backpropagates the loss through its own rows only, and the grid
 gradient is summed over the ranks once: after the backward in
 ``grad_buckets`` all-reduces, slab by slab in stream order
 (``bwd_chunks``), or through the ring backward (``grad_ring``, B11's
-port). A mesh with a ``"z"`` axis (the z-sharded grid) is not ported yet
-and raises.
+port).
+
+On a ``('data', 'z')`` mesh (``fit_grid(mesh=grid_mesh(n_data, n_z))``,
+the z-sharded grid) each rank holds one z slab of the parameters and of
+both Adam moments, and :func:`make_train_step_zsharded` sweeps it over the
+rank's row tile; the segments fold over ``'z'`` and only the slab's
+gradient, summed over ``'data'``, reaches the rank. Its views must all
+sweep the grid's z axis.
 """
 
 from __future__ import annotations
@@ -55,11 +61,23 @@ import torch
 
 from tpuvr_torch.config import RenderConfig, TrainConfig
 from tpuvr_torch.device import resolve_device
-from tpuvr_torch.dist.init import bucketed_all_reduce, broadcast, gather_tiles
+from tpuvr_torch.dist.init import (
+    GridMesh,
+    all_gather,
+    all_reduce,
+    all_to_all,
+    bucketed_all_reduce,
+    broadcast,
+    exchange,
+    gather_tiles,
+)
+from tpuvr_torch.dist.retile import fold_segments, retile_rows_to_slabs
+from tpuvr_torch.dist.sharded_grid import fold_gathered
 from tpuvr_torch.ops.geometry import (
     view_geometry,
     warp_to_pixels_band,
     warp_to_pixels_dynamic,
+    warp_to_pixels_owned,
 )
 from tpuvr_torch.ops.render import (
     grid_to_sweep_layout,
@@ -85,8 +103,6 @@ log = logging.getLogger("tpuvr_torch")
 
 _SOFTPLUS_INV_001 = float(np.log(np.expm1(0.01)))  # raw init -> sigma 0.01
 _TILE = 128  # the JAX package's banded tile edge (band_tiles)
-_Z_MESH = ("a mesh with a 'z' axis (the z-sharded grid) is not ported yet; "
-           "use a 'data' mesh (tpuvr_torch.dist.data_mesh)")
 
 
 def params_to_grid(params, density_softplus: bool):
@@ -323,8 +339,9 @@ def make_train_step(
     returns the same loss and applies the same summed gradient.
     """
     axis, reverse = key[0], key[1]
-    if mesh is not None and mesh.shape.get("z", 1) > 1:
-        raise NotImplementedError(_Z_MESH)
+    if isinstance(mesh, GridMesh):
+        raise ValueError("a ('data', 'z') mesh trains through "
+                         "make_train_step_zsharded")
     ringed = mesh is not None and grad_ring
     chunked = mesh is not None and bwd_chunks > 1 and not ringed
     lit = lighting is not None and lighting.mode != "none"
@@ -469,6 +486,176 @@ def make_train_step(
     return step
 
 
+def make_train_step_zsharded(
+    key,
+    n_views: int,
+    opt,
+    render_cfg: RenderConfig,
+    density_softplus: bool,
+    impl: Optional[str],
+    mesh: GridMesh,
+    rows: Optional[int] = None,
+    grad_buckets: int = 4,
+):
+    """One train step of a view group on a ``('data', 'z')`` mesh, every
+    rank holding its z slab of the raw (Z, Y, X, 4) parameters (the JAX
+    package's ``make_train_step_zsharded``).
+
+    Returns ``step(params_slab, opt_state, geom_all, targets_all, pick,
+    r0s) -> (params_slab, opt_state, loss)``, the arguments as
+    :func:`make_train_step`'s; every rank calls it with the same ones and
+    gets the same loss, the mean over the views of each view's image MSE
+    (over the band's pixels with ``rows``), as on one device.
+
+    The views must sweep the grid's z axis (axis 2), so that the stored Z
+    slab is the sweep slab (a ValueError otherwise). Rank (i, d) sweeps its
+    slab over rows [i V / n_data, (i + 1) V / n_data) of each view, view by
+    view, with early ray termination off; its slab covers traversal steps
+    [k sz, (k + 1) sz), k = d, or n_z - 1 - d for a reverse group (the op
+    runs with the group's ``reverse`` against the ascending-z slab).
+
+    The loss, then its gradient, by staged autograd passes around the
+    collectives, every rank issuing the same ones in the same order:
+
+    - ``rows`` None (the retile): the segments are retiled over ``'z'``
+      (one ``all_to_all``) and folded into the rank's row block b = r (rows
+      [b V / n, (b + 1) V / n) of n = n_data n_z blocks), which takes block
+      b + 1's first row as a halo over the flat ring (one ``exchange``; the
+      last block gets zeros) and warps the pixels it owns
+      (``warp_to_pixels_owned``): a disjoint masked partial MSE. Backward:
+      the halo's cotangent goes back to block b + 1 (one ``exchange``), the
+      fold's to the slabs (the reverse ``all_to_all``). The partial losses
+      are summed over every rank (one all-reduce a step).
+    - ``rows`` set (the band): the slabs' segments are gathered over
+      ``'z'`` and folded, the data tiles gathered over ``'data'`` into the
+      whole band, and every rank takes the band's loss; its cotangent,
+      narrowed to the rank's data tile, goes back through the fold to the
+      rank's own segment only.
+
+    The slab's gradient is summed over ``'data'`` in ``grad_buckets``
+    all-reduces; nothing crosses ``'z'`` after the folds.
+    """
+    axis, reverse = key[0], key[1]
+    if axis != 2:
+        raise ValueError(
+            "z-sharded training requires cameras whose dominant sweep axis "
+            f"is the grid z axis (got axis={axis}); render those views with "
+            "the replicated data-parallel trainer instead")
+    n_data, n_z = mesh.shape["data"], mesh.shape["z"]
+    i, d, rank = mesh.data.rank, mesh.z.rank, mesh.rank
+    halo_pairs = [(b, b - 1) for b in range(1, mesh.world)]
+    back_pairs = [(b - 1, b) for b in range(1, mesh.world)]
+
+    def retile_loss(seg, geom_v, target, n_v):
+        """This rank's partial loss of one view and its cotangent with
+        respect to ``seg`` (4, V / n_data, U)."""
+        rows_sub = seg.shape[1] // n_z
+        recv = retile_rows_to_slabs(seg, mesh.z).requires_grad_(True)
+        with torch.enable_grad():
+            color, trans = fold_segments(recv, reverse)
+            inter = torch.cat([color, trans[None]]).permute(1, 2, 0)
+        own = inter.detach().requires_grad_(True)
+        halo = exchange(own.detach()[:1], halo_pairs,
+                        mesh.flat).requires_grad_(True)
+        with torch.enable_grad():
+            img, mask = warp_to_pixels_owned(
+                torch.cat([own, halo]), geom_v["lattice"], geom_v["uv"],
+                rank * rows_sub, rows_sub, n_v)
+            err = torch.mean((img[..., :3] - target) ** 2, dim=-1)
+            part = torch.sum(err * mask.to(err.dtype)) / err.numel()
+            d_own, d_halo = torch.autograd.grad(part / n_views, (own, halo))
+        d_own[:1] += exchange(d_halo, back_pairs, mesh.flat)
+        with torch.enable_grad():
+            (d_recv,) = torch.autograd.grad(inter, recv, d_own)
+        d_seg = all_to_all(d_recv, mesh.z)
+        return part.detach(), d_seg.transpose(0, 1).reshape(seg.shape)
+
+    def band_loss(seg, geom_v, target, r0):
+        """The band's loss of one view (the same on every rank) and its
+        cotangent with respect to this rank's ``seg``."""
+        segs = list(all_gather(seg, mesh.z).unbind(0))
+        own = seg.requires_grad_(True)
+        with torch.enable_grad():
+            segs[d] = own
+            if reverse:  # rank order reverses traversal order
+                segs = segs[::-1]
+            color, trans = fold_gathered([x[:3] for x in segs],
+                                         [x[3] for x in segs])
+            tile = torch.cat([color, trans[None]])
+        full = all_gather(tile.detach(), mesh.data)
+        full = full.transpose(0, 1).flatten(1, 2).requires_grad_(True)
+        with torch.enable_grad():
+            img, mask = warp_to_pixels_band(full.permute(1, 2, 0),
+                                            geom_v["lattice"], geom_v["uv"],
+                                            r0)
+            err = torch.mean((img[..., :3] - target) ** 2, dim=-1)
+            mask = mask.to(err.dtype)
+            loss_v = torch.sum(err * mask) / torch.clamp_min(torch.sum(mask),
+                                                             1.0)
+            (d_full,) = torch.autograd.grad(loss_v / n_views, full)
+            v_l = tile.shape[1]
+            (d_seg,) = torch.autograd.grad(
+                tile, own, d_full.narrow(1, i * v_l, v_l))
+        return loss_v.detach(), d_seg
+
+    def step(params, opt_state, geom_all, targets_all, pick, r0s):
+        pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
+                                 device=params.device)
+        geom = {k: v[pick_t] for k, v in geom_all.items()}
+        targets = targets_all[pick_t]
+        if rows is not None:
+            geom = _slice_band(geom, r0s, rows)
+        n_v = geom["dt"].shape[1]
+        _check_zrows(n_v, mesh)
+        v_l = n_v // n_data
+        r_lo = i * v_l
+        op = sweep_op(reverse, render_cfg.sigma_scale, 0.0,
+                      resolve_impl(impl, params), render_cfg.precision,
+                      row0=r_lo)
+        p = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            grid_sc = grid_to_sweep_layout(
+                params_to_grid(p, density_softplus), axis)
+            occ = slice_enables(grid_sc, reverse, render_cfg.use_occupancy)
+        sz = grid_sc.shape[0]
+        k0 = ((n_z - 1 - d) if reverse else d) * sz
+        segs, d_segs, total = [], [], 0.0
+        for v in range(n_views):
+            geom_v = {k: t[v] for k, t in geom.items()}
+            with torch.enable_grad():
+                rgb, trans = op(grid_sc, tuple(geom_v["coeffs"][:, k0:k0 + sz]),
+                                occ * geom_v["valid"][k0:k0 + sz],
+                                geom_v["dt"][r_lo:r_lo + v_l])
+                seg = torch.cat([rgb, trans[None]])
+            if rows is None:
+                loss_v, d_seg = retile_loss(seg.detach(), geom_v, targets[v],
+                                            n_v)
+            else:
+                loss_v, d_seg = band_loss(seg.detach(), geom_v, targets[v],
+                                          r0s[v])
+            segs.append(seg)
+            d_segs.append(d_seg)
+            total = total + loss_v
+        with torch.enable_grad():
+            (grads,) = torch.autograd.grad(segs, p, d_segs)
+        bucketed_all_reduce(grads, mesh.data, grad_buckets)
+        loss = (total / n_views).reshape(1)
+        if rows is None:  # disjoint partials: their sum is the loss
+            all_reduce(loss, mesh.flat)
+        updates, opt_state = opt.update(grads, opt_state)
+        return params + updates, opt_state, loss[0]
+
+    return step
+
+
+def _check_zrows(n_v: int, mesh: GridMesh):
+    """The intermediate (or band) rows must split over every rank of a
+    ``('data', 'z')`` mesh: ValueError otherwise."""
+    if n_v % mesh.world:
+        raise ValueError(f"{n_v} rows not divisible by mesh "
+                         f"{mesh.shape['data']}x{mesh.shape['z']}")
+
+
 def _as_tensor(x):
     """A float32 tensor of numpy data or of a tensor on any device."""
     return torch.as_tensor(x if torch.is_tensor(x) else np.asarray(x),
@@ -522,8 +709,21 @@ def fit_grid(
         The ranks start from rank 0's parameters; rank 0 alone writes
         metrics and checkpoints, and on ``resume`` rank 0's checkpoint
         decides the start step, the parameters and the optimizer state
-        of every rank (the others need not see rank 0's ``run_dir``). A
-        mesh with a ``"z"`` axis > 1 raises NotImplementedError.
+        of every rank (the others need not see rank 0's ``run_dir``).
+        Or a :class:`~tpuvr_torch.dist.init.GridMesh`
+        (``tpuvr_torch.dist.grid_mesh(n_data, n_z)``): the z-sharded grid
+        (:func:`make_train_step_zsharded`), rank (i, d) holding slab d of
+        the parameters and of both Adam moments; views are grouped and
+        banded over the n_data row shards, the fused mode is off, rank 0's
+        start step and each slab's first ``'data'`` rank's state start
+        every rank, that rank alone checkpoints its slab to
+        ``run_dir/ckpt/z{d}`` (a resume restores each rank's own slab), and
+        rank 0 writes the metrics. It refuses, with a ValueError before any
+        collective, lighting, ``grad_ring``, ``bwd_chunks`` > 1,
+        ``TPUVR_WARP=rows`` and ``fused=True`` (the JAX package drops the
+        first four silently on such a mesh), views that do not sweep the
+        z axis, a Z that the z ranks do not divide, and intermediate or band
+        rows that the ranks do not divide.
       grad_buckets: MeshConfig.grad_buckets, the all-reduces the grid
         gradient is cut into after the backward.
       bwd_chunks: MeshConfig.bwd_chunks: > 1 cuts the backward into slabs
@@ -554,11 +754,16 @@ def fit_grid(
       per step and ``history["step_ms"]``, the time from the end of one
       step to the end of the next (CUDA events on the card; the first
       entry runs from the start of the loop). On a mesh every rank
-      returns the same.
+      returns the same history; on a ``GridMesh`` the grid and params
+      are the rank's z slab (the JAX package returns one global sharded
+      array; the port materialises the whole grid on no rank).
     """
-    if mesh is not None and mesh.shape.get("z", 1) > 1:
-        raise NotImplementedError(_Z_MESH)
-    if mesh is None and (grad_ring or bwd_chunks > 1):
+    zmesh = isinstance(mesh, GridMesh)
+    if zmesh:
+        _refuse_on_zmesh(grid_shape, mesh, lighting, grad_ring, bwd_chunks,
+                         fused)
+        fused = False
+    elif mesh is None and (grad_ring or bwd_chunks > 1):
         raise ValueError("grad_ring and bwd_chunks > 1 reduce the gradient "
                          "over a mesh; pass mesh=")
     dev = resolve_device(device)
@@ -566,15 +771,24 @@ def fit_grid(
     main_rank = mesh is None or mesh.rank == 0
     metrics = MetricsLogger(run_dir if main_rank else None)
     opt = opt if opt is not None else Adam(cfg.lr)
+    # On a z mesh: this rank's slab of Z, and its own checkpoint directory.
+    slab_shape, z_rows = tuple(grid_shape), slice(None)
+    ckpt_dir, writer = f"{run_dir}/ckpt", main_rank
+    if zmesh:
+        sz = grid_shape[0] // mesh.shape["z"]
+        slab_shape = (sz, *grid_shape[1:])
+        z_rows = slice(mesh.z.rank * sz, (mesh.z.rank + 1) * sz)
+        ckpt_dir = f"{ckpt_dir}/z{mesh.z.rank}"
+        writer = mesh.data.rank == 0
     if params_init is not None:
-        params = torch.as_tensor(params_init, dtype=torch.float32).to(
-            dev, copy=True)
+        params = torch.as_tensor(params_init, dtype=torch.float32)[
+            z_rows].to(dev, copy=True)
     else:
-        params = init_params(grid_shape, cfg.density_softplus, device=dev)
+        params = init_params(slab_shape, cfg.density_softplus, device=dev)
     opt_state = opt.init(params)
     start_step = 0
 
-    ckpt = Checkpointer(f"{run_dir}/ckpt") if cfg.ckpt_every else None
+    ckpt = Checkpointer(ckpt_dir) if cfg.ckpt_every else None
     if resume and ckpt is not None and ckpt.latest_step() is not None:
         step_no, state = ckpt.restore(
             {"params": params, "opt_state": opt_state})
@@ -584,7 +798,7 @@ def fit_grid(
 
     # Geometry is built on the host, then each group's stacked tensors
     # move to the device once.
-    n_shards = 1 if mesh is None else mesh.world
+    n_shards = 1 if mesh is None else mesh.shape["data"]
     groups = {
         k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band, plan)
         for k, (idxs, stacked, band, plan) in group_views(
@@ -604,10 +818,16 @@ def fit_grid(
         n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
         rows = band_rows(cfg.rays_per_view, n_v, n_u, n_shards)
         rows_by_key[key] = (rows, n_v)
+        k_views = min(cfg.views_per_batch, len(idxs))
+        if zmesh:
+            _check_zrows(rows or n_v, mesh)
+            steps_fns[key] = make_train_step_zsharded(
+                key, k_views, opt, render_cfg, cfg.density_softplus, impl,
+                mesh, rows=rows, grad_buckets=grad_buckets)
+            continue
         if (rows or n_v) % n_shards:
             raise ValueError(f"group {key}: intermediate rows {rows or n_v} "
                              f"not divisible by mesh size {n_shards}")
-        k_views = min(cfg.views_per_batch, len(idxs))
         steps_fns[key] = make_train_step(
             key, k_views, opt, render_cfg, cfg.density_softplus, impl,
             rows=rows, kernel_softplus=fused, lighting=lighting,
@@ -623,7 +843,8 @@ def fit_grid(
 
     if mesh is not None:  # after every check that can refuse the run
         params, opt_state, start_step = _start_from_rank0(
-            params, opt_state, start_step, opt, mesh)
+            params, opt_state, start_step, opt,
+            *((mesh.flat, mesh.data) if zmesh else (mesh,)))
     rng = np.random.default_rng(cfg.seed + start_step)
     history = {"loss": [], "step_ms": []}
     pending = None  # (step numbers, key, device losses) awaiting readback
@@ -694,7 +915,7 @@ def fit_grid(
             drain(pending)
         pending = (list(range(step_no, step_no + n_done)), key, losses)
         next_step = step_no + n_done
-        if ckpt is not None and main_rank and (
+        if ckpt is not None and writer and (
                 next_step % cfg.ckpt_every < n_done
                 or next_step >= cfg.steps):
             p_c, o_c = (_relayout(params, opt_state, cur_layout, None)
@@ -731,21 +952,48 @@ def _broadcast_tree(tree, mesh, device):
     return tree
 
 
-def _start_from_rank0(params, opt_state, start_step, opt, mesh):
+def _start_from_rank0(params, opt_state, start_step, opt, mesh,
+                      state_mesh=None):
     """Every rank of ``mesh`` starts where rank 0 does: rank 0's start step
     (its own run directory decides a resume; the ranks' hosts need not
     share one), its parameters, and, when it resumed, its optimizer
     state. A rank that restored a checkpoint rank 0 did not have starts
-    from a fresh optimizer state, as rank 0 does. Issues two broadcasts,
-    and one per state tensor or number after a resume."""
+    from a fresh optimizer state, as rank 0 does. ``state_mesh`` (default
+    ``mesh``): the ranks whose first rank's parameters and state a rank
+    takes (a z slab's ``'data'`` ranks). Issues two broadcasts, and one
+    per state tensor or number after a resume."""
+    state_mesh = state_mesh or mesh
     head = torch.tensor([start_step], dtype=torch.int64, device=params.device)
     rank0_step = int(broadcast(head, mesh).item())
-    broadcast(params, mesh)
+    broadcast(params, state_mesh)
     if rank0_step > 0:
-        opt_state = _broadcast_tree(opt_state, mesh, params.device)
+        opt_state = _broadcast_tree(opt_state, state_mesh, params.device)
     elif start_step > 0:
         opt_state = opt.init(params)
     return params, opt_state, rank0_step
+
+
+def _refuse_on_zmesh(grid_shape, mesh: GridMesh, lighting, grad_ring: bool,
+                     bwd_chunks: int, fused: Optional[bool]):
+    """What ``fit_grid`` cannot run on a ``('data', 'z')`` mesh raises
+    ValueError, before any collective."""
+    if lighting is not None and lighting.mode != "none":
+        raise ValueError("lighting on a ('data', 'z') mesh: the light bake "
+                         "needs the whole grid, and a rank holds one slab")
+    if grad_ring or bwd_chunks > 1:
+        raise ValueError("grad_ring and bwd_chunks > 1 reduce a replicated "
+                         "grid's gradient; on a ('data', 'z') mesh each "
+                         "slab's gradient is summed over 'data' only")
+    if os.environ.get("TPUVR_WARP") == "rows":
+        raise ValueError("TPUVR_WARP=rows on a ('data', 'z') mesh: the "
+                         "z-sharded step warps the rows a rank owns with "
+                         "the 4-tap gather")
+    if fused:
+        raise ValueError("the fused mode keeps the state in a group's sweep "
+                         "layout; it is off on a ('data', 'z') mesh")
+    if grid_shape[0] % mesh.shape["z"]:
+        raise ValueError(f"grid Z={grid_shape[0]} not divisible by z-mesh "
+                         f"{mesh.shape['z']}")
 
 
 def render_all_views(grid, cams, render_cfg: RenderConfig = RenderConfig(),
