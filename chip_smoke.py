@@ -38,12 +38,14 @@ Phases, in order; any failure raises and exits non-zero:
      fit_grid(mesh=data_mesh()) on 4 ranks started by
      tpuvr_torch.dist.launch.spawn, 3 steps under each gradient reduction
      (bucketed, chunked, the ring backward), one mesh step held against the
-     single-process step, and the ring backward (B11's port) against K6 in
-     one call then one all-reduce, timed. With 4 cards or more each rank
-     takes a card and the ranks talk over NCCL; with fewer the 4 ranks
-     share card 0 over gloo (NCCL refuses two ranks on one card), so their
-     times say nothing of several cards. Each rank resets and reads its own
-     launch and collective counts around each run;
+     single-process step, the ring backward (B11's port) against K6 in
+     one call then one all-reduce, timed, and the scaling table at the
+     headline frame (render_view on each rank's card, render_view_dp over
+     the 4 ranks, and the mesh row's efficiency). With 4 cards or more
+     each rank takes a card and the ranks talk over NCCL; with fewer the 4
+     ranks share card 0 over gloo (NCCL refuses two ranks on one card), so
+     their times say nothing of several cards. Each rank resets and reads
+     its own launch and collective counts around each run;
   6. the z-sharded grid (zshard) at 512^3 on 4 ranks, laid out as phase 5
      lays them out: the 1024^2 top-down frame on a (1, 4) mesh in each
      segment fold (all_gather, ring, retile) against the single-card
@@ -52,7 +54,16 @@ Phases, in order; any failure raises and exits non-zero:
      band, each branch's first-step gradient held slab by slab against the
      single-card step; launches and collectives per frame and per fit on
      every rank, ms/frame, ms/step and peak memory per rank;
-  7. print one JSON line per kernel (time, bound, plain and library
+  7. the benchmark's judged core (bench): tpuvr_torch.bench.judged.run at
+     the 256^3 @ 512^2 headline frame (the frame loop, fwd+bwd, the
+     raw-grid and fused train steps, K3's pixel-gradient error against the
+     f64 oracle beside the plain version's, the roofline fractions; the
+     extended set under TPUVR_BENCH_FULL=1) printed as one "bench" JSON
+     line, with the K1/K3 launches its loop lengths predict and no other
+     kernel; the scaling table's one-card row (its mesh row is phase
+     5's); the c1 frame with
+     mode='fixed_dt' against device="cpu" and against the plane sweep;
+  8. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the cards nvidia-smi lists, the card's name and power
      limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
@@ -71,7 +82,8 @@ row tiles): SHA-256 digests of rgb and T, interleaved CUDA-event times,
 device times, bounds and per-tile window counts. ``--phase light`` does the
 same for the light bake's tau sweep and its adjoint (K2, K4 at c3's 16
 directions, c3's prepare_grid, the lit fit's first-step gradient), also in
-a tree that has only the one-direction tau wrappers.
+a tree that has only the one-direction tau wrappers. ``--phase bench``
+runs the build (K1, K3) and phase 7 alone.
 """
 
 from __future__ import annotations
@@ -93,13 +105,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
-SWEEP_FLOPS_PER_SAMPLE = 40  # tent weights, 16 taps x 4 ch, exp, composite
+from tpuvr_torch.bench.roofline import (
+    F32_FLOP_PER_S,
+    HBM_BYTES_PER_S,
+    sweep_bwd_bound,
+    sweep_fwd_bound,
+    sweep_work,
+)
+
 TAU_FLOPS_PER_VOXEL = 20     # tent weights, 4 taps, relu/fma, row+column
-# Backward sweep per sample: the forward's recompute (40), the adjoint
-# arithmetic (about 30), and the transposed resample of 4 channels (40).
-BWD_FLOPS_PER_SAMPLE = 110
 # Row warp per pixel and channel, either way: 4 tap products and 3 sums, and
 # the pixel's 4 tent weights shared over the channels.
 WARP_FLOPS_PER_SAMPLE = 10
@@ -110,6 +124,7 @@ WARP_FLOPS_PER_SAMPLE = 10
 GRAD_TOL = {"highest": 1e-5, "high": 1e-5, "default": 4e-3}
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink 4, each direction
 DIST_RANKS = 4
+SCALING_MIN_WALL = 0.5  # seconds a timed loop of the dist scaling rows lasts
 RING_CHUNKS = 4
 # fit_grid's gradient reductions on a mesh (MeshConfig's fields).
 # The z-sharded grid (ROADMAP A1): the render's and the fit's meshes
@@ -258,63 +273,6 @@ def per_ray_sweep_fwd(grid_sc, coeffs, enables, dt_map, *, reverse=False,
         rgb = rgb + (trans * (1.0 - att))[None] * smp[1:4]
         trans = trans * att
     return rgb, trans
-
-
-def support_samples(args, row0=0):
-    """Ray-slices of enabled slices whose two positions lie in the tents'
-    support (-1, n), with the kernels' f32 position formula (a product,
-    then a sum): the samples that need work (the others read only zero
-    taps). The coefficients and enables are (S,) for one view or (views,
-    S) for a view batch; the rays are rows [row0, row0 + V / views)."""
-    grid_sc, coeffs, enables, dt_map = args
-    _, _, n_y, n_x = grid_sc.shape
-    ay, by, ax, bx = (np.atleast_2d(c.detach().cpu().numpy().astype(
-        np.float32)) for c in coeffs)
-    en = np.atleast_2d(enables.detach().cpu().numpy()) != 0
-    n_v, n_u = dt_map.shape
-    v = np.arange(row0, row0 + n_v // en.shape[0], dtype=np.float32)
-    u = np.arange(n_u, dtype=np.float32)
-    py = ay[..., None] * v + by[..., None]
-    px = ax[..., None] * u + bx[..., None]
-    in_y = ((py > -1.0) & (py < n_y)).sum(-1)
-    in_x = ((px > -1.0) & (px < n_x)).sum(-1)
-    return int((en * in_y * in_x).sum())
-
-
-def sweep_work(args, row0=0):
-    """(grid bytes of the slices enabled in any view, scalar bytes, ray
-    plane bytes, ray-slice samples of enabled slices, those samples inside
-    the tents' support) of one sweep; the enables are (S,) for one view or
-    (views, S) for a view batch."""
-    grid_sc, coeffs, enables, dt_map = args
-    s, _, n_y, n_x = grid_sc.shape
-    n_v, n_u = dt_map.shape
-    on = (enables > 0).reshape(-1, s)
-    samples = int(on.sum()) * (n_v // on.shape[0]) * n_u
-    return (int(on.any(0).sum()) * 4 * n_y * n_x * 4, 5 * on.numel() * 4,
-            n_v * n_u * 4, samples, support_samples(args, row0))
-
-
-def sweep_fwd_bound(args, row0=0):
-    """(bytes ms, operations ms): each input read once (only enabled
-    slices of the grid), each output written once; SWEEP_FLOPS_PER_SAMPLE
-    per sample inside the tents' support (a sample outside it reads only
-    zero taps and changes nothing). That is the work these inputs need
-    when no ray terminates early."""
-    grid_b, scal_b, plane_b, _, support = sweep_work(args, row0)
-    return ((grid_b + scal_b + 5 * plane_b) / HBM_BYTES_PER_S * 1e3,
-            SWEEP_FLOPS_PER_SAMPLE * support / F32_FLOP_PER_S * 1e3)
-
-
-def sweep_bwd_bound(args, row0=0):
-    """(bytes ms, operations ms) of one backward sweep: the grid's enabled
-    slices, the scalars and 9 ray planes (dt, rgb, T, their cotangents)
-    read once, the gradient written once; BWD_FLOPS_PER_SAMPLE per sample
-    inside the tents' support."""
-    grid_b, scal_b, plane_b, _, support = sweep_work(args, row0)
-    grad_b = args[0].numel() * 4
-    return ((grid_b + grad_b + scal_b + 9 * plane_b) / HBM_BYTES_PER_S * 1e3,
-            BWD_FLOPS_PER_SAMPLE * support / F32_FLOP_PER_S * 1e3)
 
 
 def reset_counts():
@@ -1942,13 +1900,15 @@ def dist_rank(steps, run_root, reps):
     - "b11": the ring backward over this rank's row tile of the c4
       minibatch against K6 in one call then one all-reduce and against its
       plain version; K6 alone, one all-reduce of the gradient alone, the
-      ring, K6 then one all-reduce, and the plain ring, timed.
+      ring, K6 then one all-reduce, and the plain ring, timed;
+    - "scaling": ``scaling_table``'s rows at the headline frame (one card,
+      and on rank 0 the mesh's row), through ``workers.scaling_case``.
     """
     import torch.distributed as tdist
 
     from tpuvr_torch import configs
     from tpuvr_torch.dist import init as dinit
-    from tpuvr_torch.dist.workers import CaptureGrad, row_tile
+    from tpuvr_torch.dist.workers import CaptureGrad, row_tile, scaling_case
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.kernels import ring_bwd
     from tpuvr_torch.kernels import sweep as ksweep
@@ -2072,6 +2032,17 @@ def dist_rank(steps, run_root, reps):
                     f"grid {tuple(tile[0].shape)}, {RING_CHUNKS} slabs")
     out["b11"] = b11
     reached("ring backward")
+    del bwd_args, ref, zeros, tile, rgb, trans
+
+    # The scaling table at the headline frame: render_view on each rank's
+    # card, then render_view_dp over the mesh; rank 0 writes both rows.
+    head = configs.CONFIGS["headline"]
+    grid = smoke_sphere(head["grid_n"], device=dev).cpu().numpy()
+    tdist.barrier()
+    out["scaling"] = scaling_case(
+        mesh, device=dev, grid=grid, cam=configs.camera(head),
+        cfg=head["render"], min_wall=SCALING_MIN_WALL)
+    reached("scaling table")
     return out
 
 
@@ -2218,6 +2189,25 @@ def dist_phase(steps=3):
         f"{t['plain_ms']:.1f} ms; hidden share {hidden:.3f}; bound "
         f"{entry['bound_ms']:.4f} ms ({bound_note})")
     summary["b11"] = {k: v for k, v in entry.items() if k != "name"}
+
+    rows = [r["scaling"] for r in ranks]
+    one, mesh_row = rows[0][0], rows[0][-1]
+    check([r["devices"] for r in rows[0]] == [1, world]
+          and all(len(r) == 1 for r in rows[1:]),
+          f"dist scaling rows {rows}")
+    check(all(r[0] == one for r in rows),
+          "dist scaling: the ranks' one-card rows differ")
+    for row in rows[0]:
+        check(row["ms_per_frame"] > 0.0 and 0.0 < row["efficiency"] <= 1.05,
+              f"dist scaling row {row}")
+    summary["scaling"] = dict(rows=rows[0], layout=layout.split(" (")[0],
+                              min_wall_s=SCALING_MIN_WALL)
+    log(f"[dist] scaling table at the headline frame ({layout.split(' (')[0]}"
+        f"): one card {one['ms_per_frame']:.5f} ms/frame "
+        f"({one['rays_per_s']:.5g} rays/s), {world} ranks "
+        f"{mesh_row['ms_per_frame']:.5f} ms/frame "
+        f"({mesh_row['rays_per_s']:.5g} rays/s), efficiency "
+        f"{mesh_row['efficiency']:.5f}")
     summary["seconds"] = seconds
     log(f"[dist] phase done in {seconds:.1f} s")
     return summary, entry, [r["fits"] for r in ranks]
@@ -2569,17 +2559,120 @@ def zshard_phase():
     return summary, launches
 
 
+def card_name_and_limit():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def expected_bench_launches(full):
+    """K1 and K3 launches of ``judged.run`` on the card, from its loop
+    lengths: one sweep each way a body call (a frame is one K1, a step or
+    a fwd+bwd one K1 and one K3), and one of each for the pixel-gradient
+    error."""
+    from tpuvr_torch.bench import judged
+
+    frames = judged.calls("fwd_prepared") * (6 if full else 1) + (
+        judged.calls("fwd") if full else 0)
+    both = (judged.calls("fwd_bwd") * (3 if full else 1)
+            + judged.calls("train_step") + judged.calls("train_step_fused")
+            + 1)
+    return {"sweep_fwd": frames + both, "sweep_bwd": both}
+
+
+def bench_phase(dev):
+    """The benchmark's judged core on the card: (a) ``judged.run`` at the
+    headline frame (the extended set under TPUVR_BENCH_FULL), printed as
+    the "bench" line beside the card's name and power limit, with (f) the
+    K1/K3 launches its loop lengths predict and no other kernel; (b) K3's
+    pixel-gradient error against the f64 oracle within twice the plain
+    version's plus 1e-7; (c) every roofline fraction in (0, 1.05]; (d) the
+    scaling table's one-card row at the headline frame; (e) the c1 frame
+    with mode='fixed_dt' against device="cpu" and against the plane sweep
+    at step 0.05, timed. Returns the launches of (a)."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.bench import judged
+    from tpuvr_torch.bench.sweep import scaling_table
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import render
+
+    full = judged.full_from_env()
+    card = card_name_and_limit()
+    reset_counts()
+    line = judged.run(device=None, full=full)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(json.dumps({"bench": line, "card": card}))
+    want = expected_bench_launches(full)
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    log(f"[bench] launches {launches}; expected {want}")
+    check(all(launches[k] == n for k, n in want.items()) and not others,
+          f"bench launches {launches}, expected {want} and no other kernel")
+    for key in ("fwd_ms_per_frame", "fwd_bwd_ms_per_frame", "train_step_ms",
+                "train_step_fused_ms"):
+        check(line[key] > 0.0, f"bench {key} {line[key]}")
+    err, plain = (line["pixel_grad_max_abs_err_compiled"],
+                  line["pixel_grad_max_abs_err"])
+    vs_plain, scale = (line["pixel_grad_compiled_vs_plain"],
+                       line["pixel_grad_oracle_max_abs"])
+    log(f"[bench] pixel-grad max abs err vs the f64 oracle: K3 {err:.3e}, "
+        f"plain (CPU) {plain:.3e} (tol {2 * plain + 1e-7:.3e}); K3 vs plain "
+        f"{vs_plain:.3e} (tol {GRAD_TOL['highest'] * scale:.3e}, "
+        f"{GRAD_TOL['highest']} of max|oracle| {scale:.4f})")
+    check(err <= 2.0 * plain + 1e-7, "K3's pixel-gradient error")
+    check(vs_plain <= GRAD_TOL["highest"] * scale,
+          "K3's pixel gradient against the plain version's")
+    for key in ("sol_fraction_fwd", "sol_fraction_fwd_bwd"):
+        check(0.0 < line[key] <= 1.05,
+              f"bench {key} {line[key]} outside (0, 1.05]")
+
+    head = configs.CONFIGS["headline"]
+    grid = smoke_sphere(head["grid_n"], device=dev)
+    rows = scaling_table(grid, configs.camera(head), head["render"])
+    log(json.dumps({"scaling": rows, "card": card}))
+    check(len(rows) == 1 and rows[0]["ms_per_frame"] > 0.0,
+          f"scaling table rows {rows}")
+    del grid
+
+    c1 = configs.CONFIGS["c1"]
+    cam = configs.camera(c1)
+    grid = smoke_sphere(c1["grid_n"], device=dev)
+    fixed = dataclasses.replace(c1["render"], mode="fixed_dt")
+    with torch.no_grad():
+        out = render.render_view(grid, cam, fixed)
+        ms = cuda_ms(lambda: render.render_view(grid, cam, fixed), 3)
+        t0 = time.perf_counter()
+        ref = render.render_view(grid.cpu(), cam, fixed, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        fine = render.render_view(grid, cam, dataclasses.replace(
+            fixed, step_dt=0.05))
+        sweep = render.render_view(grid, cam, c1["render"])
+    torch.cuda.synchronize()
+    scale = float(ref[0].abs().max())
+    err = max_err([o.cpu() for o in out], ref)
+    gap = max_err(fine, sweep)
+    fixed_dt = dict(ms_per_frame=ms, cpu_s=cpu_s, max_abs_err_vs_cpu=err,
+                    max_rgb=scale, gap_vs_plane_sweep_step_0_05=gap,
+                    shape=f"c1 {c1['grid_n']}^3 @ {cam.res_x}^2, step 0.5")
+    log(json.dumps({"fixed_dt": fixed_dt, "card": card}))
+    check(all(bool(torch.isfinite(o).all()) for o in (*out, *fine)),
+          "fixed_dt: non-finite image")
+    check(scale > 0.0 and err <= 1e-5 * scale,
+          f"fixed_dt card vs cpu {err:.3e} (tol {1e-5 * scale:.3e})")
+    check(gap < 0.06, f"fixed_dt at step 0.05 vs the plane sweep {gap:.3e}")
+    return launches
+
+
 def finish(t_start):
     """The cards, the card's name and power limit, and the contract line."""
     cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
                            text=True, timeout=60, check=True)
     for line in cards.stdout.strip().splitlines():
         log(f"[device] {line}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(card_name_and_limit())
     log(f"chip_smoke: done in {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2591,7 +2684,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
                         choices=("all", "dist", "zshard", "warp", "bwd",
-                                 "fwd", "light"),
+                                 "fwd", "light", "bench"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
                              "alone; 'zshard': build, then the z-sharded "
@@ -2604,7 +2697,11 @@ def main(argv=None):
                              "times and geometry; 'light': build, then the "
                              "light bake's tau sweep and its adjoint (K2, "
                              "K4) alone, with digests, times and the lit "
-                             "fit's first-step gradient")
+                             "fit's first-step gradient; 'bench': build, "
+                             "then the benchmark's judged core at the "
+                             "headline frame (TPUVR_BENCH_FULL=1 adds the "
+                             "extended set), its scaling row and the c1 "
+                             "fixed-step frame")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2629,6 +2726,7 @@ def main(argv=None):
     t0 = time.time()
     logs = _build.build({"fwd": ("sweep_fwd",),
                          "zshard": ("sweep_fwd", "sweep_bwd"),
+                         "bench": ("sweep_fwd", "sweep_bwd"),
                          "light": ("tau_sweep", "tau_adj")}.get(
                              opts.phase, _build.SOURCES))
     log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
@@ -2655,6 +2753,9 @@ def main(argv=None):
         return finish(t_start)
     if opts.phase == "light":
         log(json.dumps({"light": light_phase(dev)}))
+        return finish(t_start)
+    if opts.phase == "bench":
+        bench_phase(dev)
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
@@ -2872,17 +2973,22 @@ def main(argv=None):
 
     for name, by_path in z_launches.items():
         launches_by_path[name].update(by_path)
+    # 7. The benchmark's judged core; its K1/K3 launches join the counts.
+    bench_launches = bench_phase(dev)
+    for name in ("sweep_fwd", "sweep_bwd"):
+        launches_by_path[name]["bench"] = bench_launches[name]
 
     def train_launches(name):
         return (sum(train[p]["launches"][name] for p in train_paths)
                 + sum(n for p, n in z_launches.get(name, {}).items()
-                      if p.startswith("zshard_fit")))
+                      if p.startswith("zshard_fit"))
+                + launches_by_path[name].get("bench", 0))
 
     def bound(bytes_ms, ops_ms):
         return {"bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
-    # 7. Summary.
+    # 8. Summary.
     head = sweep_ms["headline"]
     bc4 = bwd["by_config"]["c4"]
     kernels = [
@@ -2891,7 +2997,8 @@ def main(argv=None):
             "source": "tpuvr_torch/csrc/sweep_fwd.cu", "views": 1,
             "replaces": "tpuvr/kernels/sweep.py:179",
             "also_replaces": "tpuvr/kernels/sweep.py:491",
-            "launches": launches["sweep_fwd"],
+            "launches": (launches["sweep_fwd"]
+                         + launches_by_path["sweep_fwd"]["bench"]),
             "max_abs_err": sweep_err,
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

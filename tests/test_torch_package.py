@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from tpuvr_torch import configs
+from tpuvr_torch.bench import judged
+from tpuvr_torch.bench.sweep import scaling_table
+from tpuvr_torch.config import RenderConfig
 from tpuvr_torch.device import resolve_device
 from tpuvr_torch.io.synth import smoke_sphere
 from tpuvr_torch.kernels import _build
@@ -82,6 +85,12 @@ def test_entry_points_refuse_to_fall_back(no_card):
         lighting.light_volume(grid[..., 0])
     with pytest.raises(RuntimeError):
         smoke_sphere(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render.render_view(grid, cam, RenderConfig(mode="fixed_dt"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        judged.run()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scaling_table(grid, cam)
 
 
 def test_resolve_device(no_card):

@@ -26,6 +26,8 @@ from tpuvr_torch import configs as tconfigs
 from tpuvr_torch.config import LightingConfig, RenderConfig
 from tpuvr_torch.convert import camera_from_fields, grid_from_numpy
 from tpuvr_torch.ops import render as trender
+from tpuvr_torch.ref.camera import camera_rays
+from tpuvr_torch.ref.march import render_plane_sweep
 
 N = 16
 RES = 24
@@ -184,7 +186,6 @@ def test_render_stacks_views():
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (RenderConfig(mode="fixed_dt"), NotImplementedError),
     (RenderConfig(mode="bogus"), ValueError),
     (RenderConfig(ert_chunks=4), NotImplementedError),
 ])
@@ -192,6 +193,37 @@ def test_unported_render_options_raise(cfg, err):
     with pytest.raises(err):
         trender.render_view(torch.zeros(4, 4, 4, 4),
                             tconfigs.front_ortho(4, 8), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("i", [0, 2])
+def test_render_view_fixed_dt(i):
+    """mode='fixed_dt' marches each pixel's ray: equal to the JAX
+    package's fixed-step render, at step 0.05 within the quadrature gap of
+    the plane sweep over the same rays, and refused by the prepared path (which has no
+    fixed-step form)."""
+    jc = _cams()[i]
+    grid = np.array(smoke_sphere(N))
+    kw = dict(mode="fixed_dt", step_dt=0.05, early_stop_eps=0.0)
+    rgb_j, t_j = jrender_view(jnp.asarray(grid), jc, JRenderConfig(**kw),
+                              impl="xla")
+    tgrid = torch.as_tensor(grid)
+    rgb, t = trender.render_view(tgrid, _port_cam(jc), RenderConfig(**kw),
+                                 device="cpu")
+    assert rgb.shape == (RES, RES, 3) and t.shape == (RES, RES)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), atol=1e-6)
+    np.testing.assert_allclose(t.numpy(), np.asarray(t_j), atol=1e-6)
+    # The plane sweep over the same pixel rays, within the quadrature gaps
+    # of the JAX package's tests/test_march.py: its steps are about one
+    # voxel, longer on oblique perspective rays.
+    o, d = camera_rays(_port_cam(jc), dtype=torch.float32)
+    rgb_ps, t_ps = render_plane_sweep(tgrid, o, d, jcam.dominant_axis(jc))
+    gap = 0.06 if i == 0 else 0.1
+    assert float((rgb - rgb_ps).abs().max()) < gap
+    assert float((t - t_ps).abs().max()) < gap
+    with pytest.raises(ValueError, match="fixed_dt"):
+        trender.render_prepared(trender.prepare_grid(tgrid, device="cpu"),
+                                _port_cam(jc), RenderConfig(**kw),
+                                device="cpu")
 
 
 @pytest.mark.parametrize("max_rows", [5, 7, 12])

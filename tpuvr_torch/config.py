@@ -20,7 +20,7 @@ class RenderConfig:
     Attributes:
       mode: 'plane_sweep' samples where rays cross the integer planes of
         the dominant axis (one grid slice per step). 'fixed_dt' is the
-        per-pixel oracle marcher, not ported yet.
+        per-pixel oracle marcher (``render_view`` only).
       precision: resample arithmetic. 'highest' is true f32; 'high' is the
         3-term bf16 split (about 1e-6 relative); 'default' rounds weights,
         values and the row-stage partial to bf16 and sums in f32 (about

@@ -64,6 +64,14 @@ def render_case(mesh, *, device, grid, cam, cfg):
     return render_view_dp(_t(grid, device), cam, mesh, cfg, device=device)
 
 
+def scaling_case(mesh, *, device, grid, cam, cfg, min_wall):
+    """``bench.sweep.scaling_table`` of a numpy grid over the mesh."""
+    from tpuvr_torch.bench.sweep import scaling_table
+
+    return scaling_table(_t(grid, device), cam, cfg, min_wall=min_wall,
+                         mesh=mesh, device=device)
+
+
 def sweep_grad_case(mesh, *, device, grid_sc, coeffs, enables, dt, d_rgb,
                     d_t, views, reverse, bwd_chunks=1, ring_chunks=None,
                     eps=0.0, softplus=False):

@@ -1,1 +1,2 @@
-"""CUDA kernel wrappers, their plain PyTorch twins, and the build."""
+"""CUDA kernel wrappers, their plain PyTorch twins, the build, and the
+occupancy reductions."""

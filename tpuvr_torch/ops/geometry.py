@@ -238,6 +238,43 @@ def ray_dt(plan: SweepPlan, dtype=torch.float32, device="cpu"):
     return torch.as_tensor(dt, dtype=dtype, device=device)
 
 
+def intermediate_rays(plan: SweepPlan, dtype=torch.float64, device="cpu"):
+    """Origins and dirs (n_v, n_u, 3) of the intermediate-lattice rays, for
+    holding a sweep against the oracle.
+
+    The rays are in *permuted* space, origins in front of the slab so that
+    every plane crossing has t > 0: pair them with
+    ``ref.march.render_plane_sweep(grid_permuted, o, d, axis=2)``.
+    """
+    u0, du, v0, dv = plan.lattice
+    uj = u0 + du * np.arange(plan.n_u, dtype=np.float64)
+    vi = v0 + dv * np.arange(plan.n_v, dtype=np.float64)
+    uu, vv = np.meshgrid(uj, vi)
+    base = np.stack([uu, vv, np.zeros_like(uu)], axis=-1)
+    if plan.ortho:
+        sx, sy = plan.cam_params
+        sign = -1.0 if plan.reverse else 1.0
+        d = np.asarray([sx, sy, 1.0]) * sign
+        d = np.broadcast_to(d / np.linalg.norm(d), base.shape)
+        o = base - d * (4.0 * plan.n_planes)
+    else:
+        eye = np.asarray(plan.cam_params)
+        d = base - eye
+        d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+        # base - eye points toward the base plane, and plan.reverse sets the
+        # view's z sign. For a fly-through (or behind-the-slab) eye the base
+        # plane is behind the camera: flip, so that the marcher sees the
+        # planes in front (t > 0), as the masked sweep does.
+        want = -1.0 if plan.reverse else 1.0
+        if float(d[0, 0, 2]) * want < 0:
+            d = -d
+        o = np.broadcast_to(eye, base.shape)
+    return (torch.as_tensor(np.ascontiguousarray(o), dtype=dtype,
+                            device=device),
+            torch.as_tensor(np.ascontiguousarray(d), dtype=dtype,
+                            device=device))
+
+
 def _bilinear(g, x, y, n_rows: int, n_cols: int):
     """The 4-tap bilinear gather of an (n_rows, n_cols, C) image at
     fractional (row y, column x), with the taps clamped into the image."""

@@ -26,8 +26,8 @@ from tpuvr_torch.ops.geometry import (
     warp_to_pixels,
 )
 from tpuvr_torch.ops.vjp import chunked_sweep, resolve_impl, sweep_op
-from tpuvr_torch.ref.camera import dominant_axis
-from tpuvr_torch.ref.march import GRID_PERM
+from tpuvr_torch.ref.camera import camera_rays, dominant_axis
+from tpuvr_torch.ref.march import GRID_PERM, render_fixed_dt
 
 
 def grid_to_sweep_layout(grid, axis: int):
@@ -63,12 +63,11 @@ def _grid_shape_from_sweep(axis: int, gsc_shape):
     return (s, yp, xp, 4)
 
 
-def _check_cfg(cfg: RenderConfig):
-    if cfg.mode == "fixed_dt":
-        raise NotImplementedError("mode='fixed_dt' (the per-pixel oracle) "
-                                  "is not ported yet")
-    if cfg.mode != "plane_sweep":
-        raise ValueError(f"unknown render mode: {cfg.mode!r}")
+def _check_cfg(cfg: RenderConfig, modes=("plane_sweep",)):
+    """Refuse a mode outside ``modes`` ('fixed_dt' has no prepared form)
+    and the unported ``ert_chunks`` > 1."""
+    if cfg.mode not in modes:
+        raise ValueError(f"render mode {cfg.mode!r} is not one of {modes}")
     if cfg.ert_chunks != 1:
         raise NotImplementedError("ert_chunks > 1 is not ported yet")
 
@@ -176,10 +175,24 @@ def render_view(
     """Render one view of a (Z, Y, X, 4) voxel grid:
     ``render_prepared(prepare_grid(grid, axes=(axis,)), cam)``.
 
+    ``cfg.mode='fixed_dt'`` marches each pixel's ray with a fixed step
+    (``ref.march.render_fixed_dt``, after the lighting): the exact oracle,
+    in plain PyTorch on the grid's device, slow and memory-hungry under
+    autograd (every step's gather is kept).
+
     Returns:
       (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).
     """
-    _check_cfg(cfg)
+    _check_cfg(cfg, ("plane_sweep", "fixed_dt"))
+    if cfg.mode == "fixed_dt":
+        grid = torch.as_tensor(grid, device=resolve_device(device))
+        if lighting is not None and lighting.mode != "none":
+            from tpuvr_torch.ops.lighting import apply_lighting
+
+            grid = apply_lighting(grid, lighting, cfg.precision)
+        origins, dirs = camera_rays(cam, dtype=grid.dtype)
+        return render_fixed_dt(grid, origins.to(grid.device),
+                               dirs.to(grid.device), cfg)
     axis = dominant_axis(cam)
     prep = prepare_grid(grid, axes=(axis,), lighting=lighting,
                         precision=cfg.precision, device=device)

@@ -1,1 +1,2 @@
-"""Camera models and sweep permutation tables."""
+"""Cameras, the sweep permutation tables, and the plain oracles: trilinear
+sampling, compositing and the fixed-step and plane-sweep marchers."""

@@ -1,4 +1,5 @@
-"""Cameras: frozen dataclasses, with the host-side float64 basis.
+"""Cameras: frozen dataclasses, with the host-side float64 basis, and
+per-pixel ray generation for the oracles.
 
 Vectors are (x, y, z) in grid space (voxel centres at integers). The
 fields and the basis are those of the JAX package's cameras, so a camera
@@ -12,8 +13,13 @@ import math
 from typing import Tuple
 
 import numpy as np
+import torch
 
 Vec3 = Tuple[float, float, float]
+
+
+def _normalize(v):
+    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
 def _basis(forward: Vec3, up: Vec3):
@@ -66,6 +72,38 @@ class PerspectiveCamera:
     fov_y: float = math.radians(40.0)
     res_x: int = 256
     res_y: int = 256
+
+
+def _pixel_ndc(res_x: int, res_y: int, dtype):
+    """Pixel-centre NDC grids (u right, v up), each (res_y, res_x)."""
+    j = (torch.arange(res_x, dtype=dtype) + 0.5) / res_x * 2.0 - 1.0
+    i = 1.0 - (torch.arange(res_y, dtype=dtype) + 0.5) / res_y * 2.0
+    return torch.meshgrid(j, i, indexing="xy")
+
+
+def camera_rays(cam, dtype=torch.float32):
+    """Per-pixel rays, on the CPU in ``dtype`` (the caller moves them).
+
+    Returns:
+      origins (res_y, res_x, 3), dirs (res_y, res_x, 3). Perspective dirs
+      are unit length; orthographic dirs equal the unit forward vector.
+    """
+    r, u, f = (torch.as_tensor(v, dtype=dtype)
+               for v in _basis(cam.forward, cam.up))
+    uu, vv = _pixel_ndc(cam.res_x, cam.res_y, dtype)
+    if isinstance(cam, OrthoCamera):
+        center = torch.as_tensor(cam.center, dtype=dtype)
+        origins = (center + uu[..., None] * (cam.width * 0.5) * r
+                   + vv[..., None] * (cam.height * 0.5) * u)
+        return origins, f.expand(origins.shape).clone()
+    if isinstance(cam, PerspectiveCamera):
+        t = math.tan(cam.fov_y * 0.5)
+        aspect = cam.res_x / cam.res_y
+        dirs = _normalize(f + uu[..., None] * (t * aspect) * r
+                          + vv[..., None] * t * u)
+        eye = torch.as_tensor(cam.eye, dtype=dtype)
+        return eye.expand(dirs.shape).clone(), dirs
+    raise TypeError(f"unknown camera type: {type(cam)}")
 
 
 def look_at_perspective(
