@@ -564,6 +564,55 @@ def test_sweep_bwd_ring_with_ert_and_softplus_matches_k6(card):
         np.testing.assert_array_equal(out[1][tag][0], out[0][tag][0])
 
 
+@pytest.mark.parametrize("detach", [True, False], ids=["detached", "shadows"])
+def test_lit_mesh_step_on_two_gloo_ranks_matches_one_card(card, detach):
+    """c5's lit step (raw density from a perturbed fog, one view, the
+    light baked by K2 on every rank; with ``detach=False`` the shadows'
+    gradient through K4 joins the grid gradient before its all-reduce) on 2
+    gloo ranks sharing the card, at 32^3 and 32^2, against the one-card
+    step from the same state: the loss within 1e-6 relative and the
+    gradient within 1e-5 of max|grad| (each rank sweeps its rows where the
+    whole image's are, so only the order of the sums differs); the ranks
+    bit-identical."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.dist import launch, workers
+    from tpuvr_torch.io.synth import orbit_cameras
+
+    n = 32
+    shape = (n, n, n, 4)
+    cams = orbit_cameras(4, n, res=n)
+    lcfg = LightingConfig(mode="lightvolume", n_samples=16, detach=detach)
+    run = RenderConfig(early_stop_eps=0.0)
+    targets = fit.render_views_grouped(smoke_sphere(n, device=card), cams,
+                                       run, lighting=lcfg)
+    key, (idxs, stacked, _, _) = sorted(fit.group_views(
+        cams, shape, n_shards=2).items())[0]
+    params = (workers.fog_params(shape, "cpu").numpy()
+              + np.random.default_rng(7).normal(0.0, 0.02, shape).astype(
+                  np.float32))
+    pick, r0s = np.zeros(1, np.int64), np.zeros(1, np.int32)
+    case = dict(key=key, n_views=1, render_cfg=run, params=params,
+                stacked={k: v.numpy() for k, v in stacked.items()},
+                targets=targets[idxs].cpu().numpy(), pick=pick, r0s=r0s,
+                density_softplus=False, lighting=lcfg)
+    out = launch.spawn(workers.run_suite, 2, "gloo", "cuda",
+                       ([("lit", workers.step_case, case, {})], "cuda"),
+                       timeout_s=300)
+    step = fit.make_train_step(key, 1, workers.CaptureGrad(), run, False,
+                               "cuda", lighting=lcfg)
+    _, ref, ref_loss = step(torch.as_tensor(params, device=card), None,
+                            {k: v.to(card) for k, v in stacked.items()},
+                            targets[idxs], pick, r0s)
+    ref = ref.cpu().numpy()
+    scale = float(np.abs(ref).max())
+    assert scale > 0
+    for rank in range(2):
+        loss, grad = out[rank]["lit"]
+        assert abs(loss - float(ref_loss)) <= 1e-6 * float(ref_loss)
+        np.testing.assert_allclose(grad, ref, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_array_equal(out[1]["lit"][1], out[0]["lit"][1])
+
+
 def test_sweep_views_kernel_ert_matches_k1_loop(card):
     """eps > 0 where rays terminate: over a view batch the kernels stop
     each ray where they stop it view by view, so the batch equals the

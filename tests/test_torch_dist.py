@@ -28,6 +28,10 @@ Tolerances (f32):
   the single-process twin of the whole image, the derived bound of
   ``_ert_bound``: the twins stop at a per-slice maximum of T over the rows
   they hold, so a rank stops its rows no later than the whole image does;
+- the lit mesh step (c5's shape: raw density, one view, the light baked
+  from the current density on every rank) as the unlit one: 1e-5 of
+  max|grad| against the JAX single-device step and against the JAX mesh
+  step divided by 4, with ``detach`` True and False;
 - images 1e-5, as the single-process render tests; losses 1e-6
   relative, as the single-device trainer tests; loss trajectories over
   several steps rtol 2e-3 (the JAX package's own bound for a mesh
@@ -46,12 +50,13 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+from tpuvr.config import LightingConfig as JLightingConfig
 from tpuvr.config import RenderConfig as JRenderConfig
 from tpuvr.config import TrainConfig as JTrainConfig
 from tpuvr.dist import replicated as jdist
 from tpuvr.dist.sharded_grid import grid_mesh as jgrid_mesh
 from tpuvr.dist.sharded_grid import render_view_zsharded as jrender_zsharded
-from tpuvr.io.synth import smoke_sphere
+from tpuvr.io.synth import orbit_cameras, smoke_sphere
 from tpuvr.kernels.ring_bwd import sweep_bwd_ring as jsweep_bwd_ring
 from tpuvr.ops import vjp as jvjp
 from tpuvr.ref.camera import OrthoCamera, look_at_perspective
@@ -87,6 +92,11 @@ STEPS = [("gather", m) for m in STEP_MODES] + [
 FIT_MODES = {"plain": {}, "chunked": dict(bwd_chunks=2),
              "ring": dict(bwd_chunks=2, grad_ring=True)}
 FIT_CFG = dict(lr=3e-2, steps=4, views_per_batch=2, ckpt_every=0, seed=11)
+# c5's lit training (tools/c5_train.py: raw density from a faint fog, one
+# view a step, two steps a view group), its 16 sky directions cut to 4.
+C5_FIT_CFG = dict(lr=3e-2, steps=4, views_per_batch=1, ckpt_every=0,
+                  density_softplus=False, steps_per_call=2, seed=0)
+LIT = {"detached": True, "shadows": False}
 # The ring and the mesh gradient with early ray termination and softplus,
 # on a 2-view reverse batch whose density is raised so that rays stop.
 ERT = {"ert": dict(eps=0.1), "softplus": dict(softplus=True),
@@ -180,6 +190,47 @@ def _rows_scene(n=64):
     return gshape, jcams, [_tcam(j) for j in jcams], targets
 
 
+def _c5_scene(n=16):
+    """c5's four orbit views cut to an n^3 smoke sphere at n^2 (four view
+    groups of one view, n intermediate rows each), lit targets rendered
+    by the JAX package as ``tools/c5_train.py`` renders them."""
+    gt = smoke_sphere(n)
+    jcams = orbit_cameras(4, n, res=n)
+    targets = np.array(jfit.render_views_grouped(
+        gt, jcams, JRCFG, impl="xla", lighting=_lights(True)[1]))
+    return gt.shape, jcams, [_tcam(j) for j in jcams], targets
+
+
+def _lights(detach):
+    """(port, JAX) configs of c5's sky light at 4 directions."""
+    return (LightingConfig(mode="lightvolume", n_samples=4, detach=detach),
+            JLightingConfig(mode="lightvolume", n_samples=4, detach=detach))
+
+
+def _fog(shape, seed=None):
+    """tools/c5_train.py's fog (density 0.01, emission 0.5); with a seed
+    perturbed by N(0, 0.02), so that some densities are negative and the
+    relus of the sweep's and the tau sweeps' samples cut some gradients."""
+    fog = workers.fog_params(shape, "cpu").numpy()
+    if seed is None:
+        return fog
+    rng = np.random.default_rng(seed)
+    return fog + rng.normal(0.0, 0.02, shape).astype(np.float32)
+
+
+def _lit_step_inputs(scene, detach):
+    """The first view group's view of the c5 scene, from the perturbed
+    fog, lit, with raw density."""
+    gshape, _, tcams, targets = scene
+    key, (idxs, stacked, _, _) = sorted(tfit.group_views(
+        tcams, gshape, n_shards=WORLD).items())[0]
+    return dict(key=key, n_views=1, render_cfg=RCFG,
+                stacked={k: v.numpy() for k, v in stacked.items()},
+                targets=targets[idxs], params=_fog(gshape, seed=7),
+                pick=np.zeros(1, np.int64), r0s=np.zeros(1, np.int32),
+                density_softplus=False, lighting=_lights(detach)[0])
+
+
 def _raw_params(shape, seed=5):
     rng = np.random.default_rng(seed)
     return (np.array(jfit.init_params(shape, True))
@@ -208,7 +259,8 @@ def _step_inputs(scene, warp):
 
 @pytest.fixture(scope="module")
 def scenes():
-    return {"gather": _train_scene(), "rows": _rows_scene()}
+    return {"gather": _train_scene(), "rows": _rows_scene(),
+            "c5": _c5_scene()}
 
 
 def _cases(scenes, tmp):
@@ -242,6 +294,15 @@ def _cases(scenes, tmp):
         cases.append((f"step_{warp}_{mode}", workers.step_case,
                       dict(_step_inputs(scenes[warp], warp),
                            **STEP_MODES[mode]), {}))
+    for tag, detach in LIT.items():
+        cases.append((f"step_lit_{tag}", workers.step_case,
+                      _lit_step_inputs(scenes["c5"], detach), {}))
+    gshape, _, tcams, targets = scenes["c5"]
+    cases.append(("fit_lit", workers.fit_case, dict(
+        targets=targets, cams=tcams, grid_shape=gshape,
+        cfg=TrainConfig(**C5_FIT_CFG), render_cfg=RCFG,
+        lighting=_lights(True)[0], params_init=_fog(gshape),
+        run_dir=str(tmp / "lit")), {}))
     gshape, _, tcams, targets = scenes["gather"]
     for mode, kw in FIT_MODES.items():
         for fused in (False, True):
@@ -532,6 +593,92 @@ def test_fit_grid_on_the_mesh_matches_jax(ranks, jax_fits, mode, fused):
     for r in range(1, WORLD):
         assert ranks[r][name][0] == losses
         np.testing.assert_array_equal(ranks[r][name][1], params)
+
+
+@pytest.fixture(scope="module")
+def jax_lit_steps(scenes, devices8):
+    """The JAX package's lit step (raw density, one view) from the
+    perturbed fog, on its 4-device mesh and on one device, per ``detach``:
+    {(detach, mesh): (loss, gradient)}. Its mesh step runs the ring
+    backward (2 slabs): in its other reductions the step does not trace on
+    the CPU mesh (the tau sweep's scan carry, or the Pallas interpreter's
+    slices, fail shard_map's varying-axes check; ROADMAP C)."""
+    gshape, jcams, _, targets = scenes["c5"]
+    groups = jfit.group_views(jcams, gshape, n_shards=WORLD)
+    key = sorted(groups)[0]
+    idxs, stacked, band, tiling = groups[key]
+    out = {}
+    for detach in LIT.values():
+        for mesh in (jdist.data_mesh(WORLD), None):
+            step = jfit.make_train_step(key, 1, _J_CAPTURE, JRCFG, False,
+                                        "xla", mesh, band=band,
+                                        warp_tiling=tiling, prestage=True,
+                                        grad_ring=mesh is not None,
+                                        bwd_chunks=2,
+                                        lighting=_lights(detach)[1])
+            _, grad, loss = step(jnp.asarray(_fog(gshape, seed=7)),
+                                 jnp.zeros(gshape), stacked,
+                                 jnp.asarray(targets[np.array(idxs)]),
+                                 jnp.zeros(1, jnp.int32),
+                                 jnp.zeros(1, jnp.int32))
+            out[detach, mesh is not None] = (float(loss), np.asarray(grad))
+    return out
+
+
+@pytest.mark.parametrize("tag", sorted(LIT))
+def test_lit_mesh_step_matches_jax(ranks, jax_lit_steps, tag):
+    """c5's lit step on the mesh (raw density, the light baked on every
+    rank; with ``detach=False`` the shadows' gradient joins the grid
+    gradient before its all-reduce): the loss and the gradient against the
+    JAX single-device step, and against the JAX mesh step (ring mode)
+    divided by 4 (the reference's n-fold gradient, ROADMAP C), the same on
+    every rank."""
+    detach = LIT[tag]
+    j_loss, j_grad = jax_lit_steps[detach, False]
+    m_loss, m_grad = jax_lit_steps[detach, True]
+    assert abs(m_loss - j_loss) <= 1e-6 * j_loss
+    _check_grad(m_grad / WORLD, j_grad)
+    for r in range(WORLD):
+        loss, grad = ranks[r][f"step_lit_{tag}"]
+        assert abs(loss - j_loss) <= 1e-6 * j_loss
+        _check_grad(grad, j_grad)
+        _check_grad(grad, m_grad / WORLD)
+        np.testing.assert_array_equal(grad, ranks[0][f"step_lit_{tag}"][1])
+
+
+@pytest.fixture(scope="module")
+def jax_lit_fit(scenes, devices8, tmp_path_factory):
+    """JAX ``fit_grid(mesh=data_mesh(4), lighting=..., params_init=fog)``
+    with c5's tool settings, through the ring backward (the reduction in
+    which its lit step traces on the CPU mesh), and Adam's eps 4x optax's
+    default: Adam is invariant to the scale of its gradient but for eps,
+    so 4x eps undoes that trainer's 4x gradient exactly (ROADMAP C; at
+    optax's eps the fog's voxels of gradients near eps move otherwise,
+    3.5e-3 of the loss in 4 steps here). Its losses."""
+    gshape, jcams, _, targets = scenes["c5"]
+    _, _, hist = jfit.fit_grid(
+        targets, jcams, gshape, JTrainConfig(**C5_FIT_CFG), JRCFG,
+        mesh=jdist.data_mesh(WORLD), grad_ring=True, bwd_chunks=2,
+        opt=optax.adam(C5_FIT_CFG["lr"], eps=WORLD * 1e-8),
+        lighting=_lights(True)[1],
+        params_init=jnp.asarray(_fog(gshape)),
+        run_dir=str(tmp_path_factory.mktemp("jlit")))
+    return hist["loss"]
+
+
+def test_lit_fit_grid_on_the_mesh_matches_jax(ranks, jax_lit_fit):
+    """``fit_grid`` with c5's tool settings (lit, raw density from the fog,
+    one view a step, two steps a view group) over 4 steps on the mesh,
+    its gradient in 4 buckets, has the JAX mesh trainer's loss trajectory
+    (Adam does not see that trainer's 4x gradient), and every rank the
+    same history and parameters."""
+    losses, params = ranks[0]["fit_lit"]
+    assert len(losses) == C5_FIT_CFG["steps"]
+    assert losses[1] < losses[0] and losses[3] < losses[2]
+    np.testing.assert_allclose(losses, jax_lit_fit, rtol=2e-3, atol=0)
+    for r in range(1, WORLD):
+        assert ranks[r]["fit_lit"][0] == losses
+        np.testing.assert_array_equal(ranks[r]["fit_lit"][1], params)
 
 
 def test_fit_grid_on_the_mesh_writes_metrics_on_rank_zero(ranks):

@@ -214,7 +214,8 @@ def test_smoke_script_refuses_without_card():
 
 
 def test_configs_cover_the_main_path():
-    assert set(configs.CONFIGS) == {"c1", "c2", "c3", "headline", "c4"}
+    assert set(configs.CONFIGS) == {"c1", "c2", "c3", "headline", "c4",
+                                    "c5"}
     for name, cfg in configs.CONFIGS.items():
         if name == "c4":
             continue
@@ -230,3 +231,7 @@ def test_configs_cover_the_main_path():
     assert (c4["grid_n"], c4["res"], train.lr, train.views_per_batch,
             train.ckpt_every) == (256, 256, 5e-2, 8, 200)
     assert c4["render"].early_stop_eps == 0.0 and c4["render"].use_occupancy
+    c5 = configs.CONFIGS["c5"]
+    assert (c5["grid_n"], c5["res"], c5["mesh_cfg"].data,
+            c5["mesh_cfg"].grad_buckets) == (512, 1024, 0, 4)
+    assert c5["lighting"].n_samples == 16 and c5["lighting"].detach

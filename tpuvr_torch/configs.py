@@ -1,15 +1,23 @@
-"""The render configs c1-c3, the 256^3 @ 512^2 headline frame and the
-training config c4.
+"""The render configs c1-c3, the 256^3 @ 512^2 headline frame, the
+training config c4 and the lit 512^3 config c5.
 
-Each entry has the sizes of the JAX package's ``configs/c1.py``-``c4.py``
+Each entry has the fields of the JAX package's ``configs/c1.py``-``c5.py``
 and of its benchmark frame (``bench.py``: front ortho, ERT 1e-4, the bf16
 'default' resample tier). c4 recovers a 256^3 grid from 64 orbit views at
-256^2; it has no single camera (:func:`cameras` gives its views).
+256^2; it has no single camera (:func:`cameras` gives its views). c5 is a
+512^3 grid at 1024^2, lit by 16 sky directions, on a ``'data'`` mesh of
+every rank (``mesh_cfg.data`` 0); like the JAX config it has no training
+entry (``tools/c5_train.py`` holds its training shape).
 """
 
 from __future__ import annotations
 
-from tpuvr_torch.config import LightingConfig, RenderConfig, TrainConfig
+from tpuvr_torch.config import (
+    LightingConfig,
+    MeshConfig,
+    RenderConfig,
+    TrainConfig,
+)
 from tpuvr_torch.ref.camera import OrthoCamera
 
 
@@ -79,6 +87,20 @@ CONFIGS = {
         # fit_grid(mesh=tpuvr_torch.dist.data_mesh()) on each; one card
         # trains without a mesh.
         "mesh": "data",
+    },
+    "c5": {
+        "name": "c5",
+        "grid_n": 512,
+        "res": 1024,
+        "camera": "orbit_persp",
+        "render": RenderConfig(early_stop_eps=1e-4, use_occupancy=True),
+        "lighting": LightingConfig(mode="lightvolume", n_samples=16),
+        # Rays sharded over every rank (data=0: all of them), the grid
+        # replicated on each: fit_grid(mesh=tpuvr_torch.dist.data_mesh(),
+        # grad_buckets=mesh_cfg.grad_buckets).
+        "mesh_cfg": MeshConfig(data=0, zshard=1, grad_buckets=4),
+        "multihost": True,
+        "scaling_sweep": True,
     },
 }
 

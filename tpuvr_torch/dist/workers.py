@@ -10,6 +10,8 @@ configs and cameras, the same on every rank.
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import os
 
 import numpy as np
@@ -162,13 +164,13 @@ class CaptureGrad:
 
 
 def step_case(mesh, *, device, key, n_views, render_cfg, params, stacked,
-              targets, pick, r0s, **step_kw):
-    """One ``make_train_step`` step on the mesh from raw ``params``:
-    (loss, gradient)."""
+              targets, pick, r0s, density_softplus=True, **step_kw):
+    """One ``make_train_step`` step on the mesh from raw ``params``, with
+    density through softplus or not: (loss, gradient)."""
     from tpuvr_torch.train.fit import make_train_step
 
-    step = make_train_step(key, n_views, CaptureGrad(), render_cfg, True,
-                           None, mesh=mesh, **step_kw)
+    step = make_train_step(key, n_views, CaptureGrad(), render_cfg,
+                           density_softplus, None, mesh=mesh, **step_kw)
     geom = {k: _t(v, device) for k, v in stacked.items()}
     _, grad, loss = step(_t(params, device), None, geom,
                          _t(targets, device), pick, r0s)
@@ -192,6 +194,111 @@ def resume_case(mesh, *, device, run_dirs, **fit_kw):
     ``run_dirs[r]`` (ranks on hosts that share no directory)."""
     return fit_case(mesh, device=device, run_dir=run_dirs[mesh.rank],
                     resume=True, **fit_kw)
+
+
+def fog_params(grid_shape, device):
+    """c5's starting raw parameters (``tools/c5_train.py``): a faint
+    uniform fog, every emission channel 0.5 and density 0.01. With
+    ``density_softplus=False`` the raw density is the density, and from
+    zeros its relu would pass no gradient."""
+    params = torch.full(tuple(grid_shape), 0.5, dtype=torch.float32,
+                        device=device)
+    params[..., 0] = 0.01
+    return params
+
+
+def launch_counts():
+    """This process's kernel launches and counted collectives so far, as a
+    flat Counter: one-view sweeps ("sweep_fwd", "sweep_bwd"), view
+    batches ("sweep_fwd_views", "sweep_bwd_views"), the light bake's
+    launches by cluster size ("tau_sweep_c<size>", "tau_adj_c<size>"; size
+    0 counts the plane loop's planes) and the directions they swept
+    ("tau_sweep_dirs", "tau_adj_dirs"), and each collective
+    ("collective_<kind>"). Subtract two of them for what ran between."""
+    from tpuvr_torch.dist import init
+    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+
+    out = collections.Counter({
+        "sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
+        "sweep_fwd_views": sum(n for v, n in sweep.launches.items() if v > 1),
+        "sweep_bwd_views": sum(n for v, n in sweep_bwd.launches.items()
+                               if v > 1),
+        "tau_sweep_dirs": sum(lighting.directions.values()),
+        "tau_adj_dirs": sum(lighting.adj_directions.values())})
+    out.update({f"tau_sweep_c{k}": n for k, n in lighting.launches.items()})
+    out.update({f"tau_adj_c{k}": n for k, n in lighting.adj_launches.items()})
+    out.update({f"collective_{k}": n for k, n in init.collectives.items()})
+    return out
+
+
+def _digest(t):
+    """SHA-256 of a tensor's float32 bytes after ``+ 0.0`` (the sign of a
+    zero does not count)."""
+    arr = (t.detach() + 0.0).float().contiguous().cpu().numpy()
+    return hashlib.sha256(arr.reshape(-1).view(np.uint8)).hexdigest()
+
+
+def c5_case(mesh, *, device, scene_dir, cams, grid_shape, cfg, render_cfg,
+            lighting, step_cfg, run_dir):
+    """c5's lit fit on the data mesh (``tools/c5_train.py``'s shape) from
+    the files of ``scene_dir``: ``targets.npy`` (the lit targets of
+    ``cams``) and ``grad.pt`` (the first step's gradient on one device).
+    Every rank calls it with the same arguments. Returns a dict:
+
+    - the first step from the fog (:func:`fog_params`), the first view
+      group's first view through ``make_train_step`` on the mesh at
+      ``step_cfg`` with a capturing optimizer, the gradient summed in 4
+      all-reduces (c5's ``mesh_cfg.grad_buckets``): its loss
+      ("step_loss"), its largest difference from ``grad.pt`` as a share of
+      max|grad.pt| ("grad_err_of_max"), its SHA-256 ("grad_digest"), and
+      this rank's launches and collectives in it ("step_counts");
+    - ``fit_grid`` on the mesh from the fog with ``cfg``, ``render_cfg``
+      and ``lighting``, its gradient in 4 all-reduces (rank 0 writes to
+      ``run_dir``): "loss", "step_ms", the final raw parameters' SHA-256
+      ("params_digest"), this rank's launches and collectives
+      ("fit_counts") and, on the card, its peak memory ("peak_gib") and
+      what the rank held before it ("held_gib": the targets and the
+      fog).
+    """
+    from tpuvr_torch.train.fit import fit_grid, group_views, make_train_step
+
+    on_card = torch.device(device).type == "cuda"
+    targets = torch.as_tensor(np.load(os.path.join(scene_dir, "targets.npy")),
+                              device=device)
+    params = fog_params(grid_shape, device)
+    key, (idxs, stacked, _, plan) = sorted(group_views(
+        cams, grid_shape, n_shards=mesh.world).items())[0]
+    step = make_train_step(key, 1, CaptureGrad(), step_cfg,
+                           cfg.density_softplus, None, lighting=lighting,
+                           warp_tiling=plan, mesh=mesh)
+    geom = {k: v.to(device) for k, v in stacked.items()}
+    before = launch_counts()
+    _, grad, loss = step(params, None, geom, targets[idxs], np.zeros(1, int),
+                         np.zeros(1, np.int32))
+    out = {"step_loss": float(loss), "step_counts": dict(launch_counts()
+                                                         - before)}
+    ref = torch.load(os.path.join(scene_dir, "grad.pt"), mmap=True,
+                     weights_only=True).to(device)
+    out["grad_err_of_max"] = (float((grad - ref).abs().max())
+                              / float(ref.abs().max()))
+    out["grad_digest"] = _digest(grad)
+    del grad, ref, geom, step
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["held_gib"] = torch.cuda.memory_allocated() / 2**30
+    before = launch_counts()
+    _, params, hist = fit_grid(targets, cams, grid_shape, cfg, render_cfg,
+                               mesh=mesh, run_dir=run_dir, device=device,
+                               lighting=lighting, params_init=params)
+    if on_card:
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out.update(loss=hist["loss"], step_ms=hist["step_ms"],
+               fit_counts=dict(launch_counts() - before),
+               finite=bool(torch.isfinite(params).all()),
+               params_digest=_digest(params))
+    return out
 
 
 # The z-sharded grid. Each ('data', 'z') layout's mesh is made once per
