@@ -39,7 +39,10 @@ Phases, in order; any failure raises and exits non-zero:
      tpuvr_torch.dist.launch.spawn, 3 steps under each gradient reduction
      (bucketed, chunked, the ring backward), one mesh step held against the
      single-process step, the ring backward (B11's port) against K6 in
-     one call then one all-reduce, timed, and the scaling table at the
+     one call then one all-reduce, timed, render_view_dp's gradient at the
+     headline frame ('default' and 'highest') against each rank's one-card
+     render_view gradient, with its launches and collectives and ms per
+     forward+backward, and the scaling table at the
      headline frame (render_view on each rank's card, render_view_dp over
      the 4 ranks, and the mesh row's efficiency). With 4 cards or more
      each rank takes a card and the ranks talk over NCCL; with fewer the 4
@@ -49,7 +52,12 @@ Phases, in order; any failure raises and exits non-zero:
   6. the z-sharded grid (zshard) at 512^3 on 4 ranks, laid out as phase 5
      lays them out: the 1024^2 top-down frame on a (1, 4) mesh in each
      segment fold (all_gather, ring, retile) against the single-card
-     render at eps 0 and 'highest', and fit_grid from 2 top-down views at
+     render at eps 0 and 'highest', each followed by a forward+backward of
+     sum(rgb^2) + sum(T) (and the retile's on the (2, 2) mesh) whose slab
+     gradient is held against the single-card render_view gradient, zero
+     outside the slab, with its launches and collectives, ms and device
+     time; K1 and K3 at every rank's slab shape against their plain
+     versions; and fit_grid from 2 top-down views at
      256^2 on a (2, 2) mesh, 3 steps in the retile branch and in a row
      band, each branch's first-step gradient held slab by slab against the
      single-card step; launches and collectives per frame and per fit on
@@ -1929,6 +1937,8 @@ def dist_rank(steps, run_root, reps):
       minibatch against K6 in one call then one all-reduce and against its
       plain version; K6 alone, one all-reduce of the gradient alone, the
       ring, K6 then one all-reduce, and the plain ring, timed;
+    - "grad": ``render_view_dp``'s gradient at the headline frame
+      (``dpgrad_rank``);
     - "scaling": ``scaling_table``'s rows at the headline frame (one card,
       and on rank 0 the mesh's row), through ``workers.scaling_case``.
     """
@@ -2062,6 +2072,9 @@ def dist_rank(steps, run_root, reps):
     reached("ring backward")
     del bwd_args, ref, zeros, tile, rgb, trans
 
+    out["grad"] = dpgrad_rank(mesh, reps)
+    reached("render_view_dp gradient")
+
     # The scaling table at the headline frame: render_view on each rank's
     # card, then render_view_dp over the mesh; rank 0 writes both rows.
     head = configs.CONFIGS["headline"]
@@ -2071,6 +2084,52 @@ def dist_rank(steps, run_root, reps):
         mesh, device=dev, grid=grid, cam=configs.camera(head),
         cfg=head["render"], min_wall=SCALING_MIN_WALL)
     reached("scaling table")
+    return out
+
+
+def dpgrad_rank(mesh, reps):
+    """One rank's gradient check of ``render_view_dp`` at the headline
+    frame (256^3 @ 512^2, ERT 1e-4), every rank calling it in the same
+    order, at the frame's 'default' tier and at 'highest': one counted
+    forward+backward over the mesh (``counted_grad``, the roundoff over the
+    mesh), its largest difference from this rank's own one-card
+    ``render_view`` gradient, the gradient's sum (equal on every rank),
+    and ms per forward+backward on the mesh and on one card (CUDA
+    events)."""
+    import torch.distributed as tdist
+
+    from tpuvr_torch import configs
+    from tpuvr_torch.dist import workers
+    from tpuvr_torch.dist.replicated import render_view_dp
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import render
+
+    head = configs.CONFIGS["headline"]
+    cam = configs.camera(head)
+    grid = smoke_sphere(head["grid_n"],
+                        device=torch.device("cuda",
+                                            torch.cuda.current_device()))
+    out = {}
+    for prec in ("default", "highest"):
+        cfg = dataclasses.replace(head["render"], precision=prec)
+
+        def one_card(x, cfg=cfg):
+            return render.render_view(x, cam, cfg)
+
+        def on_mesh(x, cfg=cfg):
+            return render_view_dp(x, cam, mesh, cfg)
+
+        _, _, s_loss, ref, _ = workers.render_grad(one_card, grid, mesh)
+        loss, grad, launches, roundoff = counted_grad(on_mesh, grid, mesh)
+        res = dict(loss=loss, one_card_loss=float(s_loss),
+                   scale=float(ref.abs().max()),
+                   err=float((grad - ref).abs().max()), roundoff=roundoff,
+                   grad_sum=float(grad.double().sum()), launches=launches)
+        del grad, ref
+        for name, fn in (("ms", on_mesh), ("one_card_ms", one_card)):
+            tdist.barrier()
+            res[name] = cuda_ms(fwd_bwd(fn, grid), reps)
+        out[prec] = res
     return out
 
 
@@ -2218,6 +2277,53 @@ def dist_phase(steps=3):
         f"{entry['bound_ms']:.4f} ms ({bound_note})")
     summary["b11"] = {k: v for k, v in entry.items() if k != "name"}
 
+    card = card_name_and_limit()
+    summary["grad"] = {}
+    for prec, tol in (("default", GRAD_TOL["default"]),
+                      ("highest", 1e-5)):
+        gs = [r["grad"][prec] for r in ranks]
+        check(len({g["grad_sum"] for g in gs}) == 1,
+              f"dist render_view_dp grad {prec}: the ranks' gradients "
+              "differ")
+        # K1 and K3 once (a rank's 128 rows are one row chunk); the tiles'
+        # gather and the grid gradient's sum: two all-reduces.
+        want = {"sweep_fwd": 1, "sweep_bwd": 1, "collective_all_reduce": 2,
+                **{k: 0 for k in (
+                    "sweep_fwd_views", "sweep_bwd_views", "tau_sweep",
+                    "tau_adj", "warp_rows_fwd", "warp_rows_bwd",
+                    "sweep_bwd_ring", "collective_broadcast",
+                    "collective_all_to_all", "collective_all_gather",
+                    "collective_reduce_scatter", "collective_exchange")}}
+        for g in gs:
+            got = {k: g["launches"].get(k, 0) for k in want}
+            check(got == want, f"dist render_view_dp grad {prec}: launches "
+                  f"{got}, expected {want}")
+            check(g["err"] <= tol * g["scale"] + g["roundoff"],
+                  f"dist render_view_dp grad {prec}: {g['err']:.3e} from "
+                  f"the one-card gradient (tol {tol:g} of {g['scale']:.4g} "
+                  f"+ {g['roundoff']:.3e})")
+            check(abs(g["loss"] - g["one_card_loss"])
+                  <= 1e-6 * g["one_card_loss"],
+                  f"dist render_view_dp grad {prec}: loss {g['loss']} "
+                  f"against one card's {g['one_card_loss']}")
+        g0 = gs[0]
+        by_rank = ", ".join(f"{g['ms']:.3f}" for g in gs)
+        summary["grad"][prec] = dict(
+            err_of_max=max(g["err"] / g["scale"] for g in gs),
+            roundoff_of_max=max(g["roundoff"] / g["scale"] for g in gs),
+            ms_per_fwd_bwd=g0["ms"], ms_by_rank=[g["ms"] for g in gs],
+            one_card_ms=g0["one_card_ms"], launches=g0["launches"],
+            loss=g0["loss"])
+        log(f"[dist] render_view_dp gradient at the headline frame "
+            f"({prec}, eps 1e-4): "
+            f"{summary['grad'][prec]['err_of_max']:.3e} of max|grad| from "
+            f"the one-card render_view gradient (tol {tol:g} + roundoff "
+            f"{summary['grad'][prec]['roundoff_of_max']:.3e}); "
+            f"{g0['ms']:.3f} ms a forward+backward over {world} ranks on "
+            f"rank 0 (ranks {by_rank}), one card {g0['one_card_ms']:.3f} "
+            f"({layout.split(' (')[0]}; "
+            f"{card}); rank 0 launches and collectives {g0['launches']}")
+
     rows = [r["scaling"] for r in ranks]
     one, mesh_row = rows[0][0], rows[0][-1]
     check([r["devices"] for r in rows[0]] == [1, world]
@@ -2283,6 +2389,153 @@ def zshard_step_inputs(sc, branch, dev):
     return key, {k: t.to(dev) for k, t in stacked.items()}, rows, r0s
 
 
+def zslab_kernels(grid, sc):
+    """K1 and K3 at the shapes the z renders give them, on the card, each
+    against its plain version on the same inputs: every rank's slab of the
+    ZSHARD_RENDER mesh (128 slices, every 1024 rows) and of the ZSHARD_FIT
+    mesh (256 slices, rows from 0 or 512), taken by
+    ``sharded_grid.slab_inputs`` on a mesh made by hand (no collective),
+    eps 0, 'highest', seeded cotangents; K1 and K3 timed (CUDA events) with
+    their bounds. Returns {"<layout> rank <r>": numbers}."""
+    from tpuvr_torch.dist.init import DataMesh, GridMesh
+    from tpuvr_torch.dist.sharded_grid import slab_inputs
+    from tpuvr_torch.kernels import sweep as ksweep
+    from tpuvr_torch.kernels import sweep_bwd as kbwd
+    from tpuvr_torch.kernels.sweep_torch import (
+        sweep_bwd_torch,
+        sweep_fwd_torch,
+    )
+
+    run = sc["run"]
+    gen = torch.Generator(device=grid.device).manual_seed(3)
+    out = {}
+    for n_data, n_z in (ZSHARD_RENDER, ZSHARD_FIT):
+        for rank in range(n_data * n_z):
+            i, d = divmod(rank, n_z)
+            hand = GridMesh(n_data, n_z, rank, data=DataMesh(None, i, n_data),
+                            z=DataMesh(None, d, n_z),
+                            flat=DataMesh(None, rank, n_data * n_z))
+            _, _, args, row0 = slab_inputs(grid, sc["cam"], hand, run,
+                                           grid.device)
+            kw = dict(reverse=False, sigma_scale=run.sigma_scale,
+                      early_stop_eps=0.0, precision=run.precision, row0=row0)
+            rgb, t = ksweep.sweep_fwd(*args, **kw)
+            p_rgb, p_t = sweep_fwd_torch(*args, **kw)
+            d_rgb = torch.randn(rgb.shape, generator=gen, device=grid.device)
+            d_t = torch.randn(t.shape, generator=gen, device=grid.device)
+            k = kbwd.sweep_bwd(*args, rgb, t, d_rgb, d_t, **kw)
+            p = sweep_bwd_torch(*args, rgb, t, d_rgb, d_t, **kw)
+            torch.cuda.synchronize()
+            fwd_err = max_err((rgb, t), (p_rgb, p_t))
+            scale = float(p.abs().max())
+            bwd_err = float((k - p).abs().max())
+            label = f"{n_data}x{n_z} rank {rank}"
+            check(fwd_err <= 1e-5 and all(bool(torch.isfinite(x).all())
+                                          for x in (rgb, t)),
+                  f"sweep_fwd z slab {label}: {fwd_err:.3e} (tol 1e-5)")
+            check(scale > 0 and bwd_err <= GRAD_TOL[run.precision] * scale
+                  and bool(torch.isfinite(k).all()),
+                  f"sweep_bwd z slab {label}: {bwd_err:.3e} of "
+                  f"{scale:.3e}")
+            res = dict(shape=f"S={args[0].shape[0]} V,U="
+                             f"{tuple(args[3].shape)} row0={row0}",
+                       fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+                       bwd_err_of_max=bwd_err / scale)
+            if rank in (0, n_data * n_z - 1):  # timed at two ranks a mesh
+                res.update(
+                    fwd_ms=cuda_ms(lambda: ksweep.sweep_fwd(*args, **kw), 3),
+                    bwd_ms=cuda_ms(lambda: kbwd.sweep_bwd(
+                        *args, rgb, t, d_rgb, d_t, **kw), 3),
+                    fwd_bound=sweep_fwd_bound(args, row0),
+                    bwd_bound=sweep_bwd_bound(args, row0))
+            out[label] = res
+            log(f"[zshard] K1/K3 at the z slab {label} ({res['shape']}, "
+                f"{run.precision}, eps 0): K1 {fwd_err:.3e} from plain (tol "
+                f"1e-5), K3 {bwd_err / scale:.3e} of max|grad| (tol "
+                f"{GRAD_TOL[run.precision]:g})" + (
+                    f"; K1 {res['fwd_ms']:.4f} ms (bound "
+                    f"{max(res['fwd_bound']):.4f}), K3 {res['bwd_ms']:.4f} ms "
+                    f"(bound {max(res['bwd_bound']):.4f})"
+                    if "fwd_ms" in res else ""))
+            del args, rgb, t, p_rgb, p_t, d_rgb, d_t, k, p
+    return out
+
+
+def counted_grad(render, grid, sum_mesh):
+    """One forward+backward of ``workers.image_loss`` through ``render``
+    with respect to the whole ``grid`` (``workers.render_grad``), every
+    rank calling it in the same order: (loss, gradient, this rank's
+    launches and collectives in it (reset just before), the roundoff bound
+    of the gradient's sum over ``sum_mesh``: 3 * 2^-24 * max sum_r |g_r|,
+    from one all-reduce after the counted run, 0 on a mesh of one rank)."""
+    import torch.distributed as tdist
+
+    from tpuvr_torch.dist import init as dinit
+    from tpuvr_torch.dist import workers
+
+    tdist.barrier()
+    reset_counts()
+    _, _, loss, grad, partial = workers.render_grad(render, grid, sum_mesh)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    launches.update({f"collective_{k}": v
+                     for k, v in dinit.collectives.items()})
+    roundoff = 0.0
+    if sum_mesh.world > 1:
+        part = partial.abs()
+        dinit.all_reduce(part, sum_mesh)
+        roundoff = 3 * 2.0**-24 * float(part.max())
+    return float(loss), grad, launches, roundoff
+
+
+def fwd_bwd(render, grid):
+    """A function running one forward+backward of ``workers.image_loss``
+    through ``render`` with respect to ``grid``."""
+    from tpuvr_torch.dist import workers
+
+    g = grid.detach().requires_grad_(True)
+    return lambda: torch.autograd.grad(workers.image_loss(*render(g)), g)
+
+
+def zgrad_rank(grid, zmesh, render, refs, reps):
+    """One rank's gradient check of a z render (``workers.zrender``) at the
+    z phase's frame, every rank calling it in the same order: one counted
+    forward+backward (``counted_grad``, the roundoff over ``'data'``) and
+    the rank's peak memory in it; its slab's largest difference from the
+    parent's single-card gradient (the quarters of ``refs["zgrad"]``, read
+    from disk) and the largest |grad| outside the slab; ms per
+    forward+backward (CUDA events) and device time by kernel."""
+    import torch.distributed as tdist
+
+    from tpuvr_torch.ops.geometry import plan_sweep
+
+    sc = zshard_scene()
+    plan, _ = plan_sweep(sc["cam"], sc["shape"], 2)
+    sz = plan.n_planes // zmesh.shape["z"]
+    d = zmesh.z.rank
+    lo = plan.n_planes - (d + 1) * sz if plan.reverse else d * sz
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grad, launches, roundoff = counted_grad(render, grid, zmesh.data)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    q = sc["n"] // len(refs["zgrad"])
+    ref = torch.cat([torch.load(path, mmap=True, weights_only=True)
+                     for path in refs["zgrad"][lo // q:(lo + sz) // q]])
+    err = float((grad[lo:lo + sz] - ref.to(grad.device)).abs().max())
+    outside = max([float(grad[a:b].abs().max())
+                   for a, b in ((0, lo), (lo + sz, sc["n"])) if b > a],
+                  default=0.0)
+    del grad, ref
+    step = fwd_bwd(render, grid)
+    tdist.barrier()
+    ms = cuda_ms(step, reps)
+    tdist.barrier()
+    dev_ms, top, _ = device_ms(step, 1)
+    return dict(loss=loss, err=err, outside=outside, roundoff=roundoff,
+                slab=[lo, sz], launches=launches, ms=ms, device_ms=dev_ms,
+                top=top, peak_gib=peak)
+
+
 def zshard_rank(refs, run_root, reps):
     """One rank of the zshard phase, started by ``zshard_phase``. Every rank
     runs the same calls in the same order. Returns numbers only:
@@ -2292,6 +2545,10 @@ def zshard_rank(refs, run_root, reps):
       ``render_view_retiled``): its error against the parent's single-card
       render, SHA-256 of rgb, this rank's launches and collectives of one
       frame, and ms/frame (CUDA events);
+    - "grad": after each fold's frame, one forward+backward of
+      ``workers.image_loss`` with respect to the whole grid (``zgrad_rank``),
+      and the retile's on the ZSHARD_FIT mesh ("retile_2x2"), each against
+      the parent's single-card gradient of the same loss;
     - "fit": on the ZSHARD_FIT mesh, per branch, the first step's slab
       gradient from the initial state against the parent's single-card
       one, then ``fit_grid`` for ZSHARD_STEPS steps with this rank's
@@ -2302,9 +2559,7 @@ def zshard_rank(refs, run_root, reps):
     import torch.distributed as tdist
 
     from tpuvr_torch.dist import init as dinit
-    from tpuvr_torch.dist.retile import render_view_retiled
-    from tpuvr_torch.dist.sharded_grid import render_view_zsharded
-    from tpuvr_torch.dist.workers import CaptureGrad
+    from tpuvr_torch.dist.workers import CaptureGrad, zrender
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.train import fit
 
@@ -2326,19 +2581,18 @@ def zshard_rank(refs, run_root, reps):
                     for k, v in dinit.collectives.items()})
         return got
 
-    out = {"rank": rmesh.rank, "device": str(dev), "render": {}, "fit": {}}
+    out = {"rank": rmesh.rank, "device": str(dev), "render": {}, "grad": {},
+           "fit": {}}
     grid = smoke_sphere(sc["n"], device=dev)
     ref_rgb = torch.as_tensor(refs["rgb"], device=dev)
     ref_t = torch.as_tensor(refs["t"], device=dev)
     scale = float(ref_rgb.abs().max())
-    folds = {
-        "all_gather": lambda: render_view_zsharded(
-            grid, sc["cam"], rmesh, sc["run"], fold="all_gather"),
-        "ring": lambda: render_view_zsharded(grid, sc["cam"], rmesh,
-                                             sc["run"], fold="ring"),
-        "retile": lambda: render_view_retiled(grid, sc["cam"], rmesh,
-                                              sc["run"])}
-    for name, frame in folds.items():
+    for name in ("all_gather", "ring", "retile"):
+        render = zrender(rmesh, sc["cam"], sc["run"], name, dev)
+
+        def frame():
+            return render(grid)
+
         tdist.barrier()
         reset_counts()
         rgb, t = frame()
@@ -2356,6 +2610,12 @@ def zshard_rank(refs, run_root, reps):
             top=top)
         del rgb, t
         reached(f"render {name}")
+        out["grad"][name] = zgrad_rank(grid, rmesh, render, refs, reps)
+        reached(f"grad {name}")
+    out["grad"]["retile_2x2"] = zgrad_rank(
+        grid, fmesh, zrender(fmesh, sc["cam"], sc["run"], "retile", dev),
+        refs, reps)
+    reached("grad retile_2x2")
     del grid, ref_rgb, ref_t
     torch.cuda.empty_cache()
 
@@ -2414,9 +2674,10 @@ def zshard_phase():
     the ranks start), starts the ranks, and checks every rank's results.
     Returns the summary and the z path's launches by kernel row."""
     from tpuvr_torch.dist import launch
-    from tpuvr_torch.dist.workers import CaptureGrad
+    from tpuvr_torch.dist.workers import CaptureGrad, image_loss
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.ops import render
+    from tpuvr_torch.ref.camera import dominant_axis
     from tpuvr_torch.train import fit
 
     n_cards = torch.cuda.device_count()
@@ -2428,6 +2689,7 @@ def zshard_phase():
               f"NCCL refuses two ranks on one card; these times say nothing "
               f"of {world} cards)")
     log(f"[zshard] 512^3 z-sharded grid: {layout}")
+    card = card_name_and_limit()
     sc = zshard_scene()
     dev = torch.device("cuda")
     run_root = tempfile.mkdtemp(prefix=".chip_smoke_zshard_",
@@ -2439,7 +2701,33 @@ def zshard_phase():
         targets = fit.render_all_views(grid, sc["cams"], sc["run"])
         refs = {"rgb": rgb.cpu().numpy(), "t": t.cpu().numpy(),
                 "targets": targets.cpu().numpy(), "grads": {}}
-        del grid, rgb, t
+        del rgb, t
+        # The z renders' gradient reference: the single-card render_view
+        # gradient of image_loss at the frame, saved in quarters of Z (the
+        # sweep axis), and its forward+backward ms.
+        check(dominant_axis(sc["cam"]) == 2, "the z frame must sweep z")
+        g = grid.requires_grad_(True)
+
+        def fwd_bwd():
+            return torch.autograd.grad(image_loss(*render.render_view(
+                g, sc["cam"], sc["run"])), g)
+
+        rgb, t = render.render_view(g, sc["cam"], sc["run"])
+        loss = image_loss(rgb, t)
+        (zgrad,) = torch.autograd.grad(loss, g)
+        del rgb, t
+        zref = dict(loss=float(loss.detach()),
+                    scale=float(zgrad.abs().max()),
+                    ms=cuda_ms(fwd_bwd, 3))
+        q = sc["n"] // ZSHARD_RENDER[1]
+        refs["zgrad"] = []
+        for k in range(ZSHARD_RENDER[1]):
+            refs["zgrad"].append(f"{run_root}/zgrad_q{k}.pt")
+            torch.save(zgrad[k * q:(k + 1) * q].cpu(), refs["zgrad"][-1])
+        del g, zgrad, loss
+        grid = grid.detach()
+        slab_kernels = zslab_kernels(grid, sc)
+        del grid
         ref_steps = {}
         sz = sc["n"] // ZSHARD_FIT[1]
         for branch in ("retile", "band"):
@@ -2460,7 +2748,9 @@ def zshard_phase():
         torch.cuda.empty_cache()
         ref_s = time.time() - t0
         log(f"[zshard] single-card references in {ref_s:.1f} s: "
-            f"{ref_steps}")
+            f"{ref_steps}; render_view gradient of sum(rgb^2) + sum(T): "
+            f"loss {zref['loss']:.7g}, max|grad| {zref['scale']:.6g}, "
+            f"{zref['ms']:.3f} ms a forward+backward ({card})")
         ranks = launch.spawn(zshard_rank, world, backend, "cuda",
                              (refs, run_root, 3), timeout_s=600)
     finally:
@@ -2468,9 +2758,10 @@ def zshard_phase():
     seconds = time.time() - t0
     check([r["rank"] for r in ranks] == list(range(world)), "zshard ranks")
     summary = {"transport": backend, "ranks": world,
-               "cards": min(n_cards, world), "layout": layout,
+               "cards": min(n_cards, world), "layout": layout, "card": card,
                "render_mesh": ZSHARD_RENDER, "fit_mesh": ZSHARD_FIT,
                "grid": sc["n"], "references_s": ref_s, "render": {},
+               "grad": {"single_card": zref}, "slab_kernels": slab_kernels,
                "fit": {}}
     n_z = ZSHARD_RENDER[1]
     # One frame a rank: K1 once over its slab; the fold's collectives, and
@@ -2480,11 +2771,14 @@ def zshard_phase():
                   "retile": {"collective_all_to_all": 1}}
     zero = ("sweep_bwd", "sweep_fwd_views", "sweep_bwd_views", "tau_sweep",
             "tau_adj", "warp_rows_fwd", "warp_rows_bwd", "sweep_bwd_ring")
+    no_collective = {f"collective_{k}": 0 for k in (
+        "all_reduce", "broadcast", "all_to_all", "all_gather",
+        "reduce_scatter", "exchange")}
     digests = {}
     for fold, extra in frame_want.items():
         rs = [r["render"][fold] for r in ranks]
-        want = {"sweep_fwd": 1, "collective_all_reduce": 1, **extra,
-                **{k: 0 for k in zero}}
+        want = {**no_collective, "sweep_fwd": 1, "collective_all_reduce": 1,
+                **extra, **{k: 0 for k in zero}}
         for r in rs:
             got = {k: r["launches"].get(k, 0) for k in want}
             check(got == want, f"zshard render {fold}: launches {got}, "
@@ -2508,6 +2802,57 @@ def zshard_phase():
             f"{rs[0]['device_ms']} ms a frame, by kernel {rs[0]['top']}; "
             f"rank 0 launches and collectives a frame {rs[0]['launches']}")
     summary["render_digests_equal"] = len(set(digests.values())) == 1
+    # One forward+backward a rank: K1 and K3 once over its slab; the fold's
+    # forward collectives and their transposes (the gathered fold's
+    # all_gather and one reduce-scatter, the ring's n_z - 1 exchanges each
+    # way, the retile's all_to_all each way); the tiles' gather (one
+    # all-reduce, none back); and the slab's all-reduce over 'data' where
+    # n_data > 1 (the ZSHARD_FIT mesh).
+    grad_want = {
+        "all_gather": {"collective_all_gather": 1,
+                       "collective_reduce_scatter": 1},
+        "ring": {"collective_exchange": 2 * (n_z - 1)},
+        "retile": {"collective_all_to_all": 2},
+        "retile_2x2": {"collective_all_to_all": 2,
+                       "collective_all_reduce": 2}}
+    for fold, extra in grad_want.items():
+        rs = [r["grad"][fold] for r in ranks]
+        zmesh_shape = ZSHARD_FIT if fold == "retile_2x2" else ZSHARD_RENDER
+        want = {**no_collective, "collective_all_reduce": 1, **extra,
+                **{k: 0 for k in zero}, "sweep_fwd": 1, "sweep_bwd": 1}
+        for r in rs:
+            got = {k: r["launches"].get(k, 0) for k in want}
+            check(got == want, f"zshard grad {fold}: launches {got}, "
+                  f"expected {want}")
+            check(r["err"] <= 1e-5 * zref["scale"] + r["roundoff"],
+                  f"zshard grad {fold}: slab {r['slab']} off the "
+                  f"single-card gradient by {r['err']:.3e} (tol 1e-5 of "
+                  f"{zref['scale']:.4g} + {r['roundoff']:.3e})")
+            check(r["outside"] == 0.0,
+                  f"zshard grad {fold}: {r['outside']:.3e} outside the slab")
+            check(abs(r["loss"] - zref["loss"]) <= 1e-5 * zref["loss"],
+                  f"zshard grad {fold}: loss {r['loss']} against the "
+                  f"single card's {zref['loss']}")
+        summary["grad"][fold] = dict(
+            mesh=zmesh_shape, ms_per_fwd_bwd=rs[0]["ms"],
+            ms_by_rank=[r["ms"] for r in rs],
+            err_of_max=max(r["err"] for r in rs) / zref["scale"],
+            roundoff_of_max=max(r["roundoff"] for r in rs) / zref["scale"],
+            device_ms=rs[0]["device_ms"], top=rs[0]["top"],
+            launches=rs[0]["launches"],
+            peak_gib_by_rank=[r["peak_gib"] for r in rs])
+        gs = summary["grad"][fold]
+        log(f"[zshard] grad 512^3 @ 1024^2 {zmesh_shape} "
+            f"{fold.removesuffix('_2x2')}: {gs['ms_per_fwd_bwd']:.3f} ms a "
+            f"forward+backward on rank 0 (ranks "
+            f"{', '.join(f'{m:.3f}' for m in gs['ms_by_rank'])}; one card "
+            f"{zref['ms']:.3f}; {card}), slab gradient "
+            f"{gs['err_of_max']:.3e} of max|grad| vs the single card (tol "
+            f"1e-5 + roundoff {gs['roundoff_of_max']:.3e}), zeros outside; "
+            f"rank 0 device time {gs['device_ms']} ms, by kernel "
+            f"{gs['top']}; peak GiB by rank "
+            f"{', '.join(f'{x:.2f}' for x in gs['peak_gib_by_rank'])}; rank "
+            f"0 launches and collectives {gs['launches']}")
     n_data, nz_fit = ZSHARD_FIT
     for branch, ref in ref_steps.items():
         fs = [r["fit"][branch] for r in ranks]
@@ -2576,14 +2921,13 @@ def zshard_phase():
     summary["seconds"] = seconds
     log(f"[zshard] phase done in {seconds:.1f} s")
     launches = {
-        "sweep_fwd": {"zshard_render": sum(
-            summary["render"][f]["launches"]["sweep_fwd"]
-            for f in frame_want),
-            **{f"zshard_fit_{b}": summary["fit"][b]["launches"]["sweep_fwd"]
-               for b in ref_steps}},
-        "sweep_bwd": {f"zshard_fit_{b}":
-                      summary["fit"][b]["launches"]["sweep_bwd"]
-                      for b in ref_steps}}
+        name: {"zshard_render": sum(
+            summary["render"][f]["launches"][name] for f in frame_want),
+            "zshard_grad": sum(summary["grad"][f]["launches"][name]
+                               for f in grad_want),
+            **{f"zshard_fit_{b}": summary["fit"][b]["launches"][name]
+               for b in ref_steps}}
+        for name in ("sweep_fwd", "sweep_bwd")}
     return summary, launches
 
 
@@ -3565,6 +3909,9 @@ def main(argv=None):
 
     for name, by_path in z_launches.items():
         launches_by_path[name].update(by_path)
+    for name in ("sweep_fwd", "sweep_bwd"):
+        launches_by_path[name]["dist_grad"] = sum(
+            dist["grad"][p]["launches"][name] for p in dist["grad"])
     # 7. The benchmark's judged core; its K1/K3 launches join the counts.
     bench_launches = bench_phase(dev)
     for name in ("sweep_fwd", "sweep_bwd"):
@@ -3578,8 +3925,8 @@ def main(argv=None):
         return (sum(train[p]["launches"][name] for p in train_paths)
                 + sum(n for p, n in z_launches.get(name, {}).items()
                       if p.startswith("zshard_fit"))
-                + launches_by_path[name].get("bench", 0)
-                + launches_by_path[name].get("c5_fit", 0))
+                + sum(launches_by_path[name].get(p, 0) for p in (
+                    "bench", "c5_fit", "zshard_grad", "dist_grad")))
 
     def bound(bytes_ms, ops_ms):
         return {"bound_ms": max(bytes_ms, ops_ms),
@@ -3594,9 +3941,9 @@ def main(argv=None):
             "source": "tpuvr_torch/csrc/sweep_fwd.cu", "views": 1,
             "replaces": "tpuvr/kernels/sweep.py:179",
             "also_replaces": "tpuvr/kernels/sweep.py:491",
-            "launches": (launches["sweep_fwd"]
-                         + launches_by_path["sweep_fwd"]["bench"]
-                         + launches_by_path["sweep_fwd"]["c5_fit"]),
+            "launches": (launches["sweep_fwd"] + sum(
+                launches_by_path["sweep_fwd"][p] for p in (
+                    "bench", "c5_fit", "zshard_grad", "dist_grad"))),
             "max_abs_err": sweep_err,
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

@@ -9,9 +9,35 @@ JAX names (``mesh.shape["data"]``, ``mesh.axis_names``) reads the same.
 
 Every collective the port issues goes through a function here
 (:func:`all_reduce`, :func:`broadcast`, :func:`all_to_all`,
-:func:`all_gather`, :func:`exchange`) and is counted in
-:data:`collectives`, so a run can show what it put on the wire. Each of
-them takes one route over gloo and NCCL, for CPU and CUDA tensors alike.
+:func:`all_gather`, :func:`reduce_scatter`, :func:`exchange`) and is
+counted in :data:`collectives`, so a run can show what it put on the
+wire. Each of them takes one route over gloo and NCCL, for CPU and CUDA
+tensors alike.
+
+The distributed renders are differentiable through
+``torch.autograd.Function``s whose forward is the counted collective and
+whose backward is its transpose, counted the same way: :func:`all_gather`
+(its backward a :func:`reduce_scatter`), :func:`all_to_all` (its own
+transpose), :func:`exchange` (the reversed pairs), :func:`gather_tiles`
+(the rank's own tile of the cotangent) and :func:`replicated` (an identity
+whose backward all-reduces the cotangent). On tensors that need no
+gradient they are the plain collectives.
+
+The gradient contract. The port is SPMD, and under the JAX package's
+``shard_map`` a render has one global loss: here **every rank takes the
+same loss of the same image and differentiates it**. The image comes out
+of :func:`gather_tiles`, whole and equal on every rank; the cotangent
+every rank then holds for it is the global one, so the backward of the
+gather is the rank's own tile, with no sum (a sum would make the gradient
+n times too large, the fault of the JAX package's mesh train step,
+ROADMAP C). An input that every rank holds whole but uses for its own
+part of the work (the grid of ``render_view_dp``, a slab shared by the
+``'data'`` ranks) goes through :func:`replicated`, whose all-reduce is
+JAX's transpose of an input invariant over the axis. A loss that differs
+from rank to rank is outside the contract, and a backward run on only
+some ranks hangs: its collectives wait for ranks that never start them.
+Every rank must run the same graph's backward, which runs the same
+collectives in the same order.
 """
 
 from __future__ import annotations
@@ -24,9 +50,10 @@ from typing import ClassVar, Optional
 
 import torch
 import torch.distributed as dist
+from torch.autograd.function import once_differentiable
 
 # Collectives issued so far, by kind ("all_reduce", "broadcast",
-# "all_to_all", "all_gather", "exchange").
+# "all_to_all", "all_gather", "reduce_scatter", "exchange").
 collectives: collections.Counter[str] = collections.Counter()
 
 
@@ -170,11 +197,10 @@ def bucketed_all_reduce(grads: torch.Tensor, mesh: DataMesh,
     return grads
 
 
-def gather_tiles(tile: torch.Tensor, mesh: DataMesh, dim: int):
-    """Every rank's equal ``tile``, concatenated along ``dim`` in rank
-    order, on every rank: one all-reduce of the tiles zero-padded to the
-    whole, which is exact (x + 0 = x) and takes the same route over gloo
-    and NCCL, for CPU and CUDA tensors alike."""
+def _gather_tiles(tile: torch.Tensor, mesh: DataMesh, dim: int):
+    """:func:`gather_tiles`' forward: one all-reduce of the tiles
+    zero-padded to the whole, which is exact (x + 0 = x) and takes the same
+    route over gloo and NCCL, for CPU and CUDA tensors alike."""
     n = tile.shape[dim]
     shape = list(tile.shape)
     shape[dim] = n * mesh.world
@@ -184,10 +210,7 @@ def gather_tiles(tile: torch.Tensor, mesh: DataMesh, dim: int):
     return full
 
 
-def all_to_all(chunks: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """``chunks[j]`` (leading dim = the mesh's size) goes to rank j; returns
-    what every rank sent this one, ``out[j]`` from rank j (the JAX
-    package's tiled ``all_to_all``)."""
+def _all_to_all(chunks: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     collectives["all_to_all"] += 1
     chunks = chunks.contiguous()
     out = torch.empty_like(chunks)
@@ -195,22 +218,16 @@ def all_to_all(chunks: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     return out
 
 
-def all_gather(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """Every rank's equal ``t``, stacked on a new leading dim in rank
-    order, on every rank."""
+def _all_gather(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
     collectives["all_gather"] += 1
     outs = [torch.empty_like(t) for _ in range(mesh.world)]
     dist.all_gather(outs, t.contiguous(), group=mesh.group)
     return torch.stack(outs)
 
 
-def exchange(t: torch.Tensor, pairs, mesh: DataMesh) -> torch.Tensor:
-    """The JAX package's ``ppermute``: for each ``(src, dst)`` of ``pairs``
-    (mesh ranks, each at most once a source and once a destination), rank
-    ``dst`` receives rank ``src``'s ``t``; a rank that is no destination
-    receives zeros. Every rank calls it with the same ``pairs`` and an
-    equal ``t``. One ``all_to_all_single`` with one non-empty split each
-    way, so only the pairs' bytes move."""
+def _exchange(t: torch.Tensor, pairs, mesh: DataMesh) -> torch.Tensor:
+    """:func:`exchange`'s forward: one ``all_to_all_single`` with one
+    non-empty split each way, so only the pairs' bytes move."""
     collectives["exchange"] += 1
     dst = dict(pairs).get(mesh.rank)
     src = {b: a for a, b in pairs}.get(mesh.rank)
@@ -225,3 +242,121 @@ def exchange(t: torch.Tensor, pairs, mesh: DataMesh) -> torch.Tensor:
         input_split_sizes=[n if j == dst else 0 for j in range(mesh.world)],
         group=mesh.group)
     return recv.reshape(t.shape) if src is not None else torch.zeros_like(t)
+
+
+def reduce_scatter(stack: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """The sum over the mesh's ranks of their ``stack[rank]`` ((n, ...),
+    leading dim the mesh's size), on this rank: one
+    ``reduce_scatter_tensor``. Not differentiable: it is
+    :func:`all_gather`'s backward."""
+    collectives["reduce_scatter"] += 1
+    stack = stack.contiguous()
+    out = stack.new_empty(stack.shape[1:])
+    dist.reduce_scatter_tensor(out.reshape(-1), stack.reshape(-1),
+                               group=mesh.group)
+    return out
+
+
+class _GatherTiles(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tile, mesh, dim):
+        ctx.span = (dim, mesh.rank * tile.shape[dim], tile.shape[dim])
+        return _gather_tiles(tile, mesh, dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return grad.narrow(*ctx.span), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, chunks, mesh):
+        ctx.mesh = mesh
+        return _all_to_all(chunks, mesh)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.mesh), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return _all_gather(t, mesh)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.mesh), None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, pairs, mesh):
+        ctx.pairs, ctx.mesh = pairs, mesh
+        return _exchange(t, pairs, mesh)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        back = [(dst, src) for src, dst in ctx.pairs]
+        return _exchange(grad, back, ctx.mesh), None, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        all_reduce(grad, ctx.mesh)
+        return grad, None
+
+
+def gather_tiles(tile: torch.Tensor, mesh: DataMesh, dim: int):
+    """Every rank's equal ``tile``, concatenated along ``dim`` in rank
+    order, on every rank (one all-reduce). Its backward is the rank's own
+    tile of the cotangent, with no sum and no collective: under the
+    module's gradient contract every rank holds the same cotangent of the
+    whole."""
+    return _GatherTiles.apply(tile, mesh, dim)
+
+
+def all_to_all(chunks: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """``chunks[j]`` (leading dim = the mesh's size) goes to rank j; returns
+    what every rank sent this one, ``out[j]`` from rank j (the JAX
+    package's tiled ``all_to_all``). Its own transpose: the backward is the
+    same ``all_to_all`` of the cotangent."""
+    return _AllToAll.apply(chunks, mesh)
+
+
+def all_gather(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """Every rank's equal ``t``, stacked on a new leading dim in rank
+    order, on every rank. Backward: rank d's gradient is the sum over the
+    ranks k of rank k's cotangent of slot d (one :func:`reduce_scatter`)."""
+    return _AllGather.apply(t, mesh)
+
+
+def exchange(t: torch.Tensor, pairs, mesh: DataMesh) -> torch.Tensor:
+    """The JAX package's ``ppermute``: for each ``(src, dst)`` of ``pairs``
+    (mesh ranks, each at most once a source and once a destination), rank
+    ``dst`` receives rank ``src``'s ``t``; a rank that is no destination
+    receives zeros. Every rank calls it with the same ``pairs`` and an
+    equal ``t``. Backward: the cotangent goes back over the reversed pairs
+    (one more exchange); a rank that was no source gets zeros."""
+    return _Exchange.apply(t, pairs, mesh)
+
+
+def replicated(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """``t`` unchanged, for an input every rank of ``mesh`` holds whole and
+    uses for its own part of the work: the backward all-reduces the
+    cotangent over the mesh (the JAX package's transpose of an input
+    invariant over an axis). On a mesh of one rank, ``t`` itself."""
+    return t if mesh.world == 1 else _Replicated.apply(t, mesh)

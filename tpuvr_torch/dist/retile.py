@@ -55,11 +55,10 @@ def render_view_retiled(grid, cam, mesh: GridMesh,
                         cfg: RenderConfig = RenderConfig(), impl=None,
                         device=None):
     """:func:`~tpuvr_torch.dist.sharded_grid.render_view_zsharded` with the
-    retiled fold: the same arguments, checks and result (rgb (H, W, 3),
-    trans (H, W)) on every rank. The render pre-flips a reverse plan's
-    slabs, so rank order is traversal order here."""
-    with torch.no_grad():
-        plan, uv, rgb_d, t_d = slab_segment(grid, cam, mesh, cfg, impl,
-                                            device)
-        color, trans = fold_segments_retiled(rgb_d, t_d, mesh.z)
-        return assemble(color, trans, plan, uv, mesh)
+    retiled fold: the same arguments, checks, result (rgb (H, W, 3),
+    trans (H, W)) on every rank and gradient (the rank's slab's; the
+    ``all_to_all`` is its own transpose). The render pre-flips a reverse
+    plan's slabs, so rank order is traversal order here."""
+    plan, uv, rgb_d, t_d = slab_segment(grid, cam, mesh, cfg, impl, device)
+    color, trans = fold_segments_retiled(rgb_d, t_d, mesh.z)
+    return assemble(color, trans, plan, uv, mesh)

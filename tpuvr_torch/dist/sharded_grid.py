@@ -21,11 +21,27 @@ the composite:
   local fold of the rank's rows.
 
 The render follows :func:`~tpuvr_torch.dist.replicated.render_view_dp`'s
-convention: forward only; every rank passes the whole grid, keeps only
-its slab of the sweep layout, and gets back the whole image (the tiles
-gathered over every rank in rank order, the JAX package's
-``P(('data', 'z'))`` out-sharding). A rank sweeps its rows with the sweep
-op's ``row0``, where the JAX package shifts ``by`` by ``row_off * ay``.
+convention: every rank passes the whole grid, keeps only its slab of the
+sweep layout, and gets back the whole image (the tiles gathered over every
+rank in rank order, the JAX package's ``P(('data', 'z'))`` out-sharding).
+A rank sweeps its rows with the sweep op's ``row0``, where the JAX package
+shifts ``by`` by ``row_off * ay``.
+
+Gradients (the contract of :mod:`tpuvr_torch.dist.init`: every rank takes
+the same loss of the same image and differentiates it, all ranks running
+the backward): the gradient of the ``grid`` a rank passed is its z slab's
+gradient, summed over its ``'data'`` ranks, in the slab's place in the
+grid, and zeros elsewhere. Summed over the ``'z'`` ranks these give
+``render_view``'s gradient. The gathered tiles' backward keeps the rank's
+own tile; the folds' collectives run transposed (the gathered fold's
+``all_gather`` as a reduce-scatter, the ring's exchanges over the reversed
+pairs, the retile's ``all_to_all`` as itself); the slab enters the sweep
+through :func:`~tpuvr_torch.dist.init.replicated` over ``'data'`` (one
+all-reduce of the slab's gradient where n_data > 1). Nothing crosses
+``'z'`` after the folds (the JAX package's "grid gradients stay sharded
+over 'z'"), so no rank gathers the whole gradient. Occupancy and the
+visibility mask carry no gradient. A grid that needs no gradient renders
+with the same launches, collectives and bits as a forward-only call.
 """
 
 from __future__ import annotations
@@ -36,7 +52,13 @@ import torch
 
 from tpuvr_torch.config import RenderConfig
 from tpuvr_torch.device import resolve_device
-from tpuvr_torch.dist.init import GridMesh, all_gather, exchange, gather_tiles
+from tpuvr_torch.dist.init import (
+    GridMesh,
+    all_gather,
+    exchange,
+    gather_tiles,
+    replicated,
+)
 from tpuvr_torch.ops.geometry import warp_to_pixels
 from tpuvr_torch.ops.render import _check_cfg, _frame_geometry
 from tpuvr_torch.ops.vjp import resolve_impl, sweep_op
@@ -72,7 +94,8 @@ def ring_compose_rs(rgb_d, t_d, mesh):
     the partial is a (left, right) pair split at the ring's seam: ranks
     after the tile (c + 1 .. n - 1) extend the right fold, ranks from 0 to
     c, reached after the wrap, the left; the tile is L + R. Per hop a rank
-    sends one (8, V / n, U) pair to the next (one :func:`exchange`).
+    sends one (8, V / n, U) pair to the next (one :func:`exchange`); the
+    backward sends its cotangent one hop back, hop by hop in reverse.
     """
     n, idx = mesh.world, mesh.rank
     rows = t_d.shape[0]
@@ -112,13 +135,13 @@ def check_zmesh(plan, mesh: GridMesh):
                          f"{n_data}x{n_z}")
 
 
-def slab_segment(grid, cam, mesh: GridMesh, cfg: RenderConfig, impl, device):
-    """This rank's ray segment: its traversal slab of the sweep layout
-    (flipped first under a reverse plan, so the sweep runs forward) over
-    its data row tile. Returns (plan, uv_pixel, rgb_d (3, V / n_data, U),
-    t_d (V / n_data, U))."""
+def slab_inputs(grid, cam, mesh: GridMesh, cfg: RenderConfig, device):
+    """This rank's sweep inputs: its traversal slab of the sweep layout
+    (flipped first under a reverse plan, so the sweep runs forward) and,
+    for its data row tile, the slab's coefficients, enables and ray dt.
+    Runs no collective. Returns (plan, uv_pixel, (slab (sz, 4, Y', X'),
+    coeffs, enables (sz,), dt (V / n_data, U)), the tile's first row)."""
     _check_cfg(cfg)
-    cfg = dataclasses.replace(cfg, early_stop_eps=0.0)
     dev = resolve_device(device)
     grid = torch.as_tensor(grid, device=dev)
     axis = dominant_axis(cam)
@@ -139,12 +162,23 @@ def slab_segment(grid, cam, mesh: GridMesh, cfg: RenderConfig, impl, device):
     steps = slice(d * sz, (d + 1) * sz)
     enables = valid[steps]
     if cfg.use_occupancy:
-        enables = enables * (torch.amax(slab[:, 0], dim=(1, 2)) > 0.0).to(
-            slab.dtype)
+        enables = enables * (torch.amax(slab[:, 0].detach(), dim=(1, 2))
+                             > 0.0).to(slab.dtype)
+    return plan, uv_pixel, (slab, tuple(c[steps] for c in coeffs), enables,
+                            dt_map[i * rows:(i + 1) * rows]), i * rows
+
+
+def slab_segment(grid, cam, mesh: GridMesh, cfg: RenderConfig, impl, device):
+    """This rank's ray segment: the sweep of :func:`slab_inputs`, early ray
+    termination off, the slab shared by the ``'data'`` ranks
+    (:func:`~tpuvr_torch.dist.init.replicated`). Returns (plan, uv_pixel,
+    rgb_d (3, V / n_data, U), t_d (V / n_data, U))."""
+    cfg = dataclasses.replace(cfg, early_stop_eps=0.0)
+    plan, uv_pixel, (slab, coeffs, enables, dt), row0 = slab_inputs(
+        grid, cam, mesh, cfg, device)
     op = sweep_op(False, cfg.sigma_scale, 0.0, resolve_impl(impl, slab),
-                  cfg.precision, row0=i * rows)
-    rgb_d, t_d = op(slab, tuple(c[steps] for c in coeffs), enables,
-                    dt_map[i * rows:(i + 1) * rows])
+                  cfg.precision, row0=row0)
+    rgb_d, t_d = op(replicated(slab, mesh.data), coeffs, enables, dt)
     return plan, uv_pixel, rgb_d, t_d
 
 
@@ -161,10 +195,12 @@ def assemble(color, trans, plan, uv_pixel, mesh: GridMesh):
 def render_view_zsharded(grid, cam, mesh: GridMesh,
                          cfg: RenderConfig = RenderConfig(), impl=None,
                          device=None, fold: str = "all_gather"):
-    """Forward render with the grid slab-sharded over ``'z'`` and the rays
+    """Render with the grid slab-sharded over ``'z'`` and the rays
     row-sharded over ``'data'``; the segments fold over ``'z'`` with
     ``fold`` ("all_gather" or "ring"). Every rank calls it with the same
-    arguments and the whole grid.
+    arguments and the whole grid. Differentiable with respect to the grid
+    under the module's gradient contract: a rank's gradient is its slab's,
+    zeros elsewhere.
 
     Returns (rgb (H, W, 3), trans (H, W)) on every rank. Raises ValueError
     when the slices do not split over ``'z'`` or the intermediate rows over
@@ -172,14 +208,12 @@ def render_view_zsharded(grid, cam, mesh: GridMesh,
     """
     if fold not in ("all_gather", "ring"):
         raise ValueError(f"unknown fold: {fold}")
-    with torch.no_grad():
-        plan, uv, rgb_d, t_d = slab_segment(grid, cam, mesh, cfg, impl,
-                                            device)
-        if fold == "ring":
-            color, trans = ring_compose_rs(rgb_d, t_d, mesh.z)
-        else:
-            segs = all_gather(torch.cat([rgb_d, t_d[None]]), mesh.z)
-            color, trans = fold_gathered(segs[:, :3], segs[:, 3])
-            color, trans = row_tile(color, trans, mesh.z.rank,
-                                    t_d.shape[0] // mesh.shape["z"])
-        return assemble(color, trans, plan, uv, mesh)
+    plan, uv, rgb_d, t_d = slab_segment(grid, cam, mesh, cfg, impl, device)
+    if fold == "ring":
+        color, trans = ring_compose_rs(rgb_d, t_d, mesh.z)
+    else:
+        segs = all_gather(torch.cat([rgb_d, t_d[None]]), mesh.z)
+        color, trans = fold_gathered(segs[:, :3], segs[:, 3])
+        color, trans = row_tile(color, trans, mesh.z.rank,
+                                t_d.shape[0] // mesh.shape["z"])
+    return assemble(color, trans, plan, uv, mesh)

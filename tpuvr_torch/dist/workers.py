@@ -319,15 +319,8 @@ def zrender_case(mesh, *, device, layout, grid, cam, cfg, fold):
     """The z-sharded render of a numpy grid on the ``layout`` mesh with
     ``fold``: "all_gather" or "ring" (``render_view_zsharded``), or
     "retile" (``render_view_retiled``)."""
-    from tpuvr_torch.dist.retile import render_view_retiled
-    from tpuvr_torch.dist.sharded_grid import render_view_zsharded
-
-    zmesh = _grid_mesh(tuple(layout))
-    if fold == "retile":
-        return render_view_retiled(_t(grid, device), cam, zmesh, cfg,
-                                   device=device)
-    return render_view_zsharded(_t(grid, device), cam, zmesh, cfg,
-                                device=device, fold=fold)
+    return zrender(_grid_mesh(tuple(layout)), cam, cfg, fold,
+                   device)(_t(grid, device))
 
 
 def zstep_case(mesh, *, device, layout, key, n_views, render_cfg, params,
@@ -386,3 +379,132 @@ def zcollectives_case(mesh, *, device, layout):
     return (halo, init.all_to_all(chunks, zmesh.z),
             init.all_gather(x, zmesh.z), init.all_gather(x, zmesh.data),
             dict(init.collectives - before))
+
+
+# Gradients of the distributed renders (the contract of
+# ``tpuvr_torch.dist.init``: every rank differentiates the same loss of the
+# same image).
+
+
+def image_loss(rgb, trans):
+    """The gradient tests' loss of an image: sum(rgb^2) + sum(T) (the JAX
+    package's z render gradient tests)."""
+    return (rgb * rgb).sum() + trans.sum()
+
+
+def render_grad(render, grid, sum_mesh):
+    """One forward and backward of ``image_loss(*render(g))`` for ``g`` a
+    leaf copy of ``grid``: (rgb, trans, loss, the gradient, and the
+    gradient's part on this rank before the backward's all-reduce over
+    ``sum_mesh``: the tensor that all-reduce was handed, or the gradient
+    itself when none ran), for the reduction's roundoff bound."""
+    from tpuvr_torch.dist import init
+
+    g = grid.detach().requires_grad_(True)
+    rgb, trans = render(g)
+    loss = image_loss(rgb, trans)
+    partial, reduce = [], init.all_reduce
+
+    def record(t, mesh, async_op=False):
+        if mesh is sum_mesh:
+            partial.append(t.clone())
+        return reduce(t, mesh, async_op)
+
+    init.all_reduce = record  # the backward's only all-reduces
+    try:
+        (grad,) = torch.autograd.grad(loss, g)
+    finally:
+        init.all_reduce = reduce
+    return (rgb.detach(), trans.detach(), loss.detach(), grad,
+            partial[0] if partial else grad)
+
+
+def zrender(zmesh, cam, cfg, fold, device):
+    """The z render with ``fold`` ("all_gather", "ring" or "retile") as a
+    function of the grid."""
+    from tpuvr_torch.dist.retile import render_view_retiled
+    from tpuvr_torch.dist.sharded_grid import render_view_zsharded
+
+    if fold == "retile":
+        return lambda g: render_view_retiled(g, cam, zmesh, cfg,
+                                             device=device)
+    return lambda g: render_view_zsharded(g, cam, zmesh, cfg, device=device,
+                                          fold=fold)
+
+
+def _grad_case(render, grid, sum_mesh):
+    """A forward-only call of ``render`` (a grid that needs no gradient),
+    then one forward and backward (``render_grad``), each with this rank's
+    launches and collectives."""
+    before = launch_counts()
+    with torch.no_grad():
+        rgb, trans = render(grid)
+    mid = launch_counts()
+    g_rgb, g_t, loss, grad, partial = render_grad(render, grid, sum_mesh)
+    return dict(fwd_rgb=rgb, fwd_t=trans, fwd_counts=dict(mid - before),
+                rgb=g_rgb, t=g_t, loss=float(loss), grad=grad,
+                partial=partial, counts=dict(launch_counts() - mid))
+
+
+def zgrad_case(mesh, *, device, layout, grid, cam, cfg, fold):
+    """The z render of a numpy grid on the ``layout`` mesh with ``fold``:
+    a forward-only frame, then the gradient of ``image_loss`` with respect
+    to the grid this rank passed (its slab's, zeros elsewhere) and its part
+    before the sum over ``'data'`` (in the slab's sweep layout); the
+    images, loss, and the launches and collectives of each call."""
+    zmesh = _grid_mesh(tuple(layout))
+    return _grad_case(zrender(zmesh, cam, cfg, fold, device),
+                      _t(grid, device), zmesh.data)
+
+
+def dpgrad_case(mesh, *, device, grid, cam, cfg):
+    """``render_view_dp`` of a numpy grid over every rank: as
+    :func:`zgrad_case`, the gradient the whole grid's, summed over the
+    mesh, and its part the rank's own before that sum."""
+    from tpuvr_torch.dist.replicated import render_view_dp
+
+    return _grad_case(
+        lambda g: render_view_dp(g, cam, mesh, cfg, device=device),
+        _t(grid, device), mesh)
+
+
+def grad_collectives_case(mesh, *, device, layout):
+    """Each differentiable collective of ``tpuvr_torch.dist.init`` in f64,
+    forward and backward, on small tensors of this rank's values and
+    cotangents that differ from rank to rank (the same on every rank for
+    ``gather_tiles``, as the gradient contract has it): {name: (output,
+    the input's gradient, the cotangent, the collectives of the
+    backward)}, over the
+    ``layout`` mesh's ``'z'`` group and, for the rest, the flat mesh."""
+    from tpuvr_torch.dist import init
+
+    zmesh = _grid_mesh(tuple(layout))
+    r = zmesh.rank
+    f64 = dict(dtype=torch.float64, device=device)
+
+    def run(fn, x, cot):
+        x = x.requires_grad_(True)
+        y = fn(x)
+        before = init.collectives.copy()
+        (grad,) = torch.autograd.grad(y, x, cot)
+        return y.detach(), grad, cot, dict(init.collectives - before)
+
+    def base(*shape):
+        return torch.arange(float(np.prod(shape)), **f64).reshape(shape)
+
+    n_z, n = zmesh.z.world, zmesh.world
+    halo = [(b, b - 1) for b in range(1, n)]
+    return {
+        "all_gather": run(lambda x: init.all_gather(x, zmesh.z),
+                          base(2, 3) + 10 * r,
+                          base(n_z, 2, 3) * (r + 1) + 1000 * r),
+        "all_to_all": run(lambda x: init.all_to_all(x, zmesh.z),
+                          base(n_z, 2) + 100 * r,
+                          base(n_z, 2) * (r + 2) - 7 * r),
+        "exchange": run(lambda x: init.exchange(x, halo, zmesh.flat),
+                        base(2, 3) + 10 * r, base(2, 3) * (r + 3) + 50 * r),
+        "gather_tiles": run(lambda x: init.gather_tiles(x, zmesh.flat, 0),
+                            base(2, 3) + 10 * r, base(2 * n, 3) * 3 + 1),
+        "replicated": run(lambda x: init.replicated(x, zmesh.flat),
+                          base(2, 3), base(2, 3) * (r + 1) + r),
+    }
