@@ -19,7 +19,10 @@ Phases, in order; any failure raises and exits non-zero:
      against its plain versions and grid_sample (K8 also against itself over
      two calls; each timed with CUDA events in turns with its grid_sample
      call, by the profiler, and by the host's issue time), and the whole
-     render path against device="cpu" on a small input;
+     render path against device="cpu" on a small input; the 'persample'
+     light volume (the exact oracle, plain PyTorch, no kernel) at 64^3
+     against the CPU and the K2 bake, a 'persample'-lit render_view's image
+     and grid gradient and the oracle's 16^3 gradient against the CPU;
   3. the render path at full size through the entry points (device=None):
      c1, c2 and the 256^3 @ 512^2 headline frame as frame loops, and c3 lit
      (16-direction light bake, then frames), timed with CUDA events;
@@ -68,8 +71,11 @@ Phases, in order; any failure raises and exits non-zero:
      f64 oracle beside the plain version's, the roofline fractions; the
      extended set under TPUVR_BENCH_FULL=1) printed as one "bench" JSON
      line, with the K1/K3 launches its loop lengths predict and no other
-     kernel; the scaling table's one-card row (its mesh row is phase
-     5's); the c1 frame with
+     kernel; slab-chunked early ray termination (ert_chunks 4 and 8) at
+     the headline frame against one slab, the ERT bound and the plain
+     versions, with the live slabs, its K1/K3 launches (ert_chunks a row
+     chunk) and no host sync; the scaling table's one-card row (its mesh
+     row is phase 5's); the c1 frame with
      mode='fixed_dt' against device="cpu" and against the plane sweep;
   8. c5 (configs/c5.py: 512^3 at 1024^2, lit by 16 sky directions;
      ROADMAP A3), shaped like tools/c5_train.py: the lit targets of 4
@@ -174,6 +180,13 @@ C5_STEPS = 4
 C5_MESH_STEPS = 3
 C5_CARD_RANKS = 4
 C5_SHARED_RANKS = 2
+# The 'persample' lighting checks (ROADMAP A6): the oracle's grid edge and
+# the planes its CPU reference marches, the lit render's (grid, frame) edges
+# and the gradient check's grid edge.
+PERSAMPLE_N = 64
+PERSAMPLE_CPU_PLANES = (0, 21, 42, 63)
+PERSAMPLE_RENDER = (32, 64)
+PERSAMPLE_GRAD_N = 16
 
 
 def log(msg):
@@ -1274,6 +1287,145 @@ def light_kernels(dev):
         f"launches {routes['wide_1100']}, max abs err {w_err:.3e}")
     check(routes["wide_1100"] == {0: 5} and w_err <= 1e-5 * float(
         w_tau[0].abs().max()), "tau plane loop for a wide plane")
+    out["persample"] = persample_checks(dev)
+    return out
+
+
+def persample_checks(dev):
+    """The 'persample' lighting mode (ROADMAP A6: the exact light volume,
+    plain PyTorch on the card, no kernel): (a) ``light_volume_exact`` of
+    the 64^3 smoke sphere's density, c3's 16 directions, step 1, under
+    no_grad, 64 planes a call, against the same marches on the CPU at 4 of
+    its 64 planes within 1e-5 of max L (the whole volume takes some 35 s
+    on 8 CPU cores), and the K2 bake at c3's settings against it within
+    0.08 at the voxels 2 or more from a face, each timed with its peak
+    memory; (b) ``render_view`` at 32^3 @ 64^2 (c3's camera and render
+    config) lit by 'persample' with differentiable shadows, through
+    ``apply_lighting``'s one plane a call: the image and the grid gradient
+    of mean((rgb - 0.25)^2) against device="cpu" (image within 1e-5 + eps,
+    gradient within GRAD_TOL of max|grad|), timed; (c) the gradient of a
+    seeded weighted sum of ``light_volume_exact`` at 16^3 against the
+    CPU's within GRAD_TOL of max|grad|. Returns the numbers."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ops import render
+
+    t_start = time.perf_counter()
+    c3 = configs.CONFIGS["c3"]
+    pcfg = LightingConfig(mode="persample",
+                          n_samples=c3["lighting"].n_samples)
+    tol_g = GRAD_TOL["highest"]
+    out = {}
+
+    def peak_gib(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    n = PERSAMPLE_N
+    sigma = smoke_sphere(n, device=dev)[..., 0].contiguous()
+    with torch.no_grad():
+        def oracle():
+            return olight.light_volume_exact(sigma, pcfg, chunk_planes=n)
+
+        def bake():
+            return olight.light_volume(sigma, c3["lighting"], "highest")
+
+        exact, out["oracle_peak_gib"] = peak_gib(oracle)
+        baked, out["bake_peak_gib"] = peak_gib(bake)
+        out["oracle_ms"] = cuda_ms(oracle, 1, warmup=0)
+        out["bake_ms"] = cuda_ms(bake, 5)
+        zs = PERSAMPLE_CPU_PLANES
+        ys, xs = torch.meshgrid(torch.arange(n, dtype=torch.float32),
+                                torch.arange(n, dtype=torch.float32),
+                                indexing="ij")
+        zt = torch.tensor(zs, dtype=torch.float32)[:, None, None]
+        pts = torch.stack([xs.expand(len(zs), -1, -1),
+                           ys.expand(len(zs), -1, -1),
+                           zt.expand(len(zs), n, n)], dim=-1)
+        t0 = time.perf_counter()
+        ref = olight.light_at_points_ref(sigma.cpu(), pts, pcfg,
+                                         dt=pcfg.secondary_dt)
+        out["cpu_s_planes"] = time.perf_counter() - t0
+    scale = float(ref.abs().max())
+    out["oracle_vs_cpu"] = float((exact[list(zs)].cpu() - ref).abs().max())
+    inner = slice(2, n - 2)
+    out["bake_vs_oracle_interior"] = float(
+        (baked - exact)[inner, inner, inner].abs().max())
+    out["bake_vs_oracle_all"] = float((baked - exact).abs().max())
+    log(f"[light] persample {n}^3, {pcfg.n_samples} directions, step "
+        f"{pcfg.secondary_dt:g}: card vs CPU at planes {zs} "
+        f"{out['oracle_vs_cpu']:.3e} (tol {1e-5 * scale:.3e}); K2 bake vs "
+        f"it {out['bake_vs_oracle_interior']:.4f} at voxels 2+ from a face "
+        f"(tol 0.08), {out['bake_vs_oracle_all']:.4f} over all; oracle "
+        f"{out['oracle_ms']:.2f} ms, peak {out['oracle_peak_gib']:.3f} GiB "
+        f"(CPU: {out['cpu_s_planes']:.2f} s for {len(zs)} planes); bake "
+        f"{out['bake_ms']:.3f} ms, peak {out['bake_peak_gib']:.3f} GiB")
+    check(bool(torch.isfinite(exact).all()), "persample: non-finite")
+    check(out["oracle_vs_cpu"] <= 1e-5 * scale, "persample card vs CPU")
+    check(out["bake_vs_oracle_interior"] < 0.08, "K2 bake vs persample")
+    del sigma, exact, baked
+
+    n_r, res = PERSAMPLE_RENDER
+    cam = configs.camera(c3, n_r, res)
+    rcfg = c3["render"]
+    lit = LightingConfig(mode="persample", detach=False)
+    g0 = smoke_sphere(n_r, device="cpu")
+
+    def lit_grad(device):
+        g = g0.to(device).requires_grad_(True)
+        rgb, t = render.render_view(g, cam, rcfg, lighting=lit,
+                                    device=device)
+        (grad,) = torch.autograd.grad(torch.mean((rgb - 0.25) ** 2), g)
+        return rgb.detach().cpu(), t.detach().cpu(), grad.cpu()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = lit_grad(None)
+    torch.cuda.synchronize()
+    out["render_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = lit_grad("cpu")
+    out["render_cpu_s"] = time.perf_counter() - t0
+    out["render_image_vs_cpu"] = max_err(on_card[:2], on_cpu[:2])
+    gmax = float(on_cpu[2].abs().max())
+    out["render_grad_vs_cpu_of_max"] = float(
+        (on_card[2] - on_cpu[2]).abs().max()) / gmax
+    log(f"[light] persample render_view {n_r}^3 @ {res}^2, shadows "
+        f"differentiated: image vs CPU {out['render_image_vs_cpu']:.3e} "
+        f"(tol {1e-5 + rcfg.early_stop_eps:.1e}), grid gradient "
+        f"{out['render_grad_vs_cpu_of_max']:.3e} of max {gmax:.3e} (tol "
+        f"{tol_g:g}); forward+backward {out['render_card_s'] * 1e3:.1f} ms "
+        f"on the card, {out['render_cpu_s'] * 1e3:.1f} ms on the CPU")
+    check(gmax > 0.0 and out["render_image_vs_cpu"]
+          <= 1e-5 + rcfg.early_stop_eps, "persample render card vs CPU")
+    check(out["render_grad_vs_cpu_of_max"] <= tol_g,
+          "persample render gradient card vs CPU")
+    del on_card, on_cpu
+
+    s16 = smoke_sphere(PERSAMPLE_GRAD_N, device="cpu")[..., 0].contiguous()
+    w = torch.randn(s16.shape, generator=torch.Generator().manual_seed(9))
+
+    def vol_grad(device):
+        s = s16.to(device).requires_grad_(True)
+        vol = olight.light_volume_exact(s, pcfg)
+        (grad,) = torch.autograd.grad((w.to(device) * vol).sum(), s)
+        return grad.cpu()
+
+    ref = vol_grad("cpu")
+    out["grad16_vs_cpu_of_max"] = float(
+        (vol_grad(dev) - ref).abs().max()) / float(ref.abs().max())
+    log(f"[light] persample {PERSAMPLE_GRAD_N}^3 gradient card vs CPU "
+        f"{out['grad16_vs_cpu_of_max']:.3e} of max (tol {tol_g:g})")
+    check(out["grad16_vs_cpu_of_max"] <= tol_g,
+          "persample gradient card vs CPU")
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[light] persample checks in {out['seconds']:.1f} s")
     return out
 
 
@@ -3500,11 +3652,12 @@ def card_name_and_limit():
 def expected_bench_launches(full):
     """K1 and K3 launches of ``judged.run`` on the card, from its loop
     lengths: one sweep each way a body call (a frame is one K1, a step or
-    a fwd+bwd one K1 and one K3), and one of each for the pixel-gradient
-    error."""
+    a fwd+bwd one K1 and one K3; the extended set's two slab-chunked frame
+    loops take one K1 a slab, 4 and 8), and one of each for the
+    pixel-gradient error."""
     from tpuvr_torch.bench import judged
 
-    frames = judged.calls("fwd_prepared") * (6 if full else 1) + (
+    frames = judged.calls("fwd_prepared") * (6 + 4 + 8 if full else 1) + (
         judged.calls("fwd") if full else 0)
     both = (judged.calls("fwd_bwd") * (3 if full else 1)
             + judged.calls("train_step") + judged.calls("train_step_fused")
@@ -3521,7 +3674,9 @@ def bench_phase(dev):
     version's plus 1e-7; (c) every roofline fraction in (0, 1.05]; (d) the
     scaling table's one-card row at the headline frame; (e) the c1 frame
     with mode='fixed_dt' against device="cpu" and against the plane sweep
-    at step 0.05, timed. Returns the launches of (a)."""
+    at step 0.05, timed; (g) slab-chunked early ray termination
+    (``ert_phase``). Returns the launches of (a) and of (g)'s counted
+    run."""
     from tpuvr_torch import configs
     from tpuvr_torch.bench import judged
     from tpuvr_torch.bench.sweep import scaling_table
@@ -3557,6 +3712,11 @@ def bench_phase(dev):
     for key in ("sol_fraction_fwd", "sol_fraction_fwd_bwd"):
         check(0.0 < line[key] <= 1.05,
               f"bench {key} {line[key]} outside (0, 1.05]")
+    if full:
+        check(all(line[key] is not None and line[key] > 0.0 for key in (
+            "ert_chunked_speedup_opaque", "ert_chunked_overhead_transparent",
+            "fwd_opaque_ert_chunked_ms")), "bench ert_chunked_* fields")
+    ert_launches = ert_phase(dev, card)
 
     head = configs.CONFIGS["headline"]
     grid = smoke_sphere(head["grid_n"], device=dev)
@@ -3592,7 +3752,252 @@ def bench_phase(dev):
     check(scale > 0.0 and err <= 1e-5 * scale,
           f"fixed_dt card vs cpu {err:.3e} (tol {1e-5 * scale:.3e})")
     check(gap < 0.06, f"fixed_dt at step 0.05 vs the plane sweep {gap:.3e}")
-    return launches
+    return launches, ert_launches
+
+
+def live_slabs(prep, cam, cfg):
+    """Slabs the liveness gate of ``ops.vjp.ert_chunked_sweep`` leaves live
+    in one frame of ``cfg`` (one row chunk): the gate replayed slab by slab
+    through K1, read back on the host. Its launches are no frame's."""
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ops import vjp
+
+    plan, _, (gsc, coeffs, en, dt) = render.sweep_inputs(prep, cam, cfg)
+    n = cfg.ert_chunks
+    sc = gsc.shape[0] // n
+    masks = vjp._future_coverage_masks(coeffs, en, *dt.shape, gsc.shape[2],
+                                       gsc.shape[3], sc, n)
+    op = vjp.sweep_op(plan.reverse, cfg.sigma_scale, cfg.early_stop_eps,
+                      "cuda", cfg.precision)
+    trans, live = None, 0
+    for g in range(n):
+        if g and float(torch.amax(torch.where(
+                masks[g - 1], trans, 0.0))) < cfg.early_stop_eps:
+            break
+        lo = gsc.shape[0] - (g + 1) * sc if plan.reverse else g * sc
+        tr = slice(g * sc, (g + 1) * sc)
+        _, t_g = op(gsc[lo:lo + sc], tuple(c[tr] for c in coeffs), en[tr],
+                    dt)
+        trans = t_g if trans is None else trans * t_g
+        live += 1
+    return live
+
+
+def ert_phase(dev, card):
+    """Slab-chunked early ray termination (``ert_chunks`` > 1, ROADMAP A5)
+    at the headline frame (256^3 @ 512^2), 'highest' and 'default', with
+    the card's kernels: (a) the smoke sphere in 8 slabs at eps 1e-4 against
+    one slab within 2e-6; (b) the opaque fog seen from inside its footprint
+    in 4 slabs at eps 1e-3 against eps 0 within the ERT bound (rgb 5 eps,
+    T eps); (c) the gradient of mean((rgb - 0.25)^2) of the smoke sphere
+    through the reverse camera in 4 slabs against one slab within GRAD_TOL
+    of max|grad|, and on the fog every gated slab's gradient exactly zero;
+    (d) the same frames and gradients through the plain versions on the
+    card, K1 and K3 against them; (e) the live slabs the gate left; (f) K1
+    and K3 launches of one counted run of the chunked frames and gradients,
+    exactly ert_chunks a row chunk, and no host sync in a chunked frame
+    and gradient (sync debug mode "error"); (g) ms per frame and per
+    forward+backward against the unchunked twins in interleaved rounds, and
+    device time by kernel. Returns the counted run's launches."""
+    from tpuvr_torch import configs
+    from tpuvr_torch.config import RenderConfig
+    from tpuvr_torch.io.synth import smoke_sphere
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ops.vjp import row_chunks
+    from tpuvr_torch.ref.camera import dominant_axis, look_at_perspective
+
+    t_start = time.perf_counter()
+    head = configs.CONFIGS["headline"]
+    n, res = head["grid_n"], head["res"]
+    c = (n - 1) / 2.0
+    cam = configs.camera(head)
+    cam_in = type(cam)(center=(c, c, -2.0 * n), forward=(0.0, 0.0, 1.0),
+                       up=(0.0, 1.0, 0.0), width=0.9 * n, height=0.9 * n,
+                       res_x=res, res_y=res)
+    cam_rev = look_at_perspective((c + 3.0 * n, c + 0.2 * n, c - 0.4 * n),
+                                  (c, c, c), res_x=res, res_y=res)
+    sphere = smoke_sphere(n, device=dev)
+    fog = torch.full((n, n, n, 4), 0.5, device=dev)
+    preps = {}
+
+    def prep(grid, cam_):
+        key = (id(grid), dominant_axis(cam_))
+        if key not in preps:
+            preps[key] = render.prepare_grid(grid, axes=(key[1],))
+        return preps[key]
+
+    # (grid, camera, ERT cfg fields, slabs); eps 0 also for the fog.
+    cases = {"transparent": (sphere, cam, dict(early_stop_eps=1e-4), 8),
+             "opaque": (fog, cam_in, dict(early_stop_eps=1e-3,
+                                          sigma_scale=8.0), 4),
+             "grad": (sphere, cam_rev, dict(early_stop_eps=1e-4), 4),
+             "opaque_grad": (fog, cam_in, dict(early_stop_eps=1e-3,
+                                               sigma_scale=8.0), 4)}
+
+    def cfg_of(name, prec, chunks):
+        return RenderConfig(precision=prec, ert_chunks=chunks,
+                            **cases[name][2])
+
+    def frame(name, cfg):
+        grid, cam_ = cases[name][:2]
+        p = prep(grid, cam_)
+        return lambda: render.render_prepared(p, cam_, cfg)
+
+    def fwd_bwd(name, cfg):
+        grid, cam_ = cases[name][:2]
+        axis = dominant_axis(cam_)
+        gsc, smax = prep(grid, cam_)[axis]
+
+        def run():
+            g = gsc.detach().requires_grad_(True)
+            rgb, _ = render.render_prepared({axis: (g, smax)}, cam_, cfg)
+            return torch.autograd.grad(torch.mean((rgb - 0.25) ** 2), g)[0]
+
+        return run
+
+    def chunked_calls(prec):
+        return [frame("transparent", cfg_of("transparent", prec, 8)),
+                frame("opaque", cfg_of("opaque", prec, 4)),
+                fwd_bwd("grad", cfg_of("grad", prec, 4)),
+                fwd_bwd("opaque_grad", cfg_of("opaque_grad", prec, 4))]
+
+    out = {"shape": f"headline {n}^3 @ {res}^2", "by_precision": {}}
+    want = {"sweep_fwd": 0, "sweep_bwd": 0}
+    for prec in ("highest", "default"):
+        for name, (grid, cam_, _, k) in cases.items():
+            cfg = cfg_of(name, prec, k)
+            plan, _, _ = render.sweep_inputs(prep(grid, cam_), cam_, cfg)
+            rows = row_chunks(plan.n_v, cfg.max_rows_per_call)
+            want["sweep_fwd"] += k * rows
+            if name.endswith("grad"):
+                want["sweep_bwd"] += k * rows
+        for fn in chunked_calls(prec):  # warm the frame geometry
+            fn()
+    torch.cuda.synchronize()
+    # The counted run: each chunked frame and gradient once a tier.
+    reset_counts()
+    for prec in ("highest", "default"):
+        for fn in chunked_calls(prec):
+            fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    others = {k: v for k, v in launches.items() if k not in want and v}
+    log(f"[bench] ert launches {launches}; expected {want} (ert_chunks a "
+        f"row chunk, whatever the gate did)")
+    check(all(launches[k] == v for k, v in want.items()) and not others,
+          f"ert launches {launches}, expected {want} and no other kernel")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in chunked_calls("default"):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("[bench] ert: no host sync in a chunked frame or gradient")
+    out["sync_free"] = True
+
+    for prec in ("highest", "default"):
+        res_ = out["by_precision"][prec] = {}
+        tol_g = GRAD_TOL[prec]
+        t_ch, t_1 = (frame("transparent", cfg_of("transparent", prec, k))()
+                     for k in (8, 1))
+        o_ch = frame("opaque", cfg_of("opaque", prec, 4))()
+        o_off = frame("opaque", RenderConfig(
+            precision=prec, early_stop_eps=0.0, sigma_scale=8.0))()
+        g_ch, g_1 = (fwd_bwd("grad", cfg_of("grad", prec, k))()
+                     for k in (4, 1))
+        og_ch = fwd_bwd("opaque_grad", cfg_of("opaque_grad", prec, 4))()
+        with plain_versions():
+            pt_ch = frame("transparent", cfg_of("transparent", prec, 8))()
+            po_ch = frame("opaque", cfg_of("opaque", prec, 4))()
+            pg_ch = fwd_bwd("grad", cfg_of("grad", prec, 4))()
+        torch.cuda.synchronize()
+        live = {name: live_slabs(prep(*cases[name][:2]), cases[name][1],
+                                 cfg_of(name, prec, cases[name][3]))
+                for name in ("transparent", "opaque", "grad")}
+        res_["live_slabs"] = {name: f"{v} of {cases[name][3]}"
+                              for name, v in live.items()}
+        eps_o = cases["opaque"][2]["early_stop_eps"]
+        res_["transparent_vs_one_slab"] = max_err(t_ch, t_1)
+        res_["opaque_rgb_vs_eps0"] = float((o_ch[0] - o_off[0]).abs().max())
+        res_["opaque_t_vs_eps0"] = float((o_ch[1] - o_off[1]).abs().max())
+        scale = float(g_1.abs().max())
+        res_["grad_vs_one_slab_of_max"] = float(
+            (g_ch - g_1).abs().max()) / scale
+        res_["transparent_vs_plain"] = max_err(t_ch, pt_ch)
+        res_["opaque_vs_plain"] = max_err(o_ch, po_ch)
+        res_["grad_vs_plain_of_max"] = float(
+            (g_ch - pg_ch).abs().max()) / float(pg_ch.abs().max())
+        sc = og_ch.shape[0] // 4
+        gated = range(live["opaque"], 4)
+        res_["opaque_gated_slabs_grad_max"] = max(
+            (float(og_ch[g * sc:(g + 1) * sc].abs().max()) for g in gated),
+            default=0.0)
+        log(f"[bench] ert {prec}: live slabs {res_['live_slabs']}; smoke "
+            f"sphere 8 slabs vs 1: {res_['transparent_vs_one_slab']:.3e} "
+            f"(tol 2e-6); opaque fog 4 slabs vs eps 0: rgb "
+            f"{res_['opaque_rgb_vs_eps0']:.3e} (tol {5 * eps_o:g}), T "
+            f"{res_['opaque_t_vs_eps0']:.3e} (tol {eps_o:g}); gradient 4 "
+            f"slabs vs 1 {res_['grad_vs_one_slab_of_max']:.3e} of max "
+            f"{scale:.3e} (tol {tol_g:g}); fog's gated slabs' gradient max "
+            f"{res_['opaque_gated_slabs_grad_max']:g} (want 0)")
+        log(f"[bench] ert {prec} vs the plain versions on the card: smoke "
+            f"sphere {res_['transparent_vs_plain']:.3e}, fog "
+            f"{res_['opaque_vs_plain']:.3e} (tol 1e-5 + eps max|c|), "
+            f"gradient {res_['grad_vs_plain_of_max']:.3e} of max (tol "
+            f"{tol_g:g})")
+        check(all(bool(torch.isfinite(t).all())
+                  for t in (*t_ch, *o_ch, g_ch, og_ch)), "ert: non-finite")
+        check(res_["transparent_vs_one_slab"] <= 2e-6,
+              f"ert {prec}: smoke sphere in 8 slabs vs one")
+        check(res_["opaque_rgb_vs_eps0"] < 5 * eps_o
+              and res_["opaque_t_vs_eps0"] < eps_o,
+              f"ert {prec}: opaque fog outside the ERT bound")
+        check(res_["grad_vs_one_slab_of_max"] <= tol_g,
+              f"ert {prec}: gradient in 4 slabs vs one")
+        check(live["opaque"] < 4 and res_["opaque_gated_slabs_grad_max"]
+              == 0.0, f"ert {prec}: the fog's gated slabs")
+        check(res_["transparent_vs_plain"] <= 1e-5 + 1e-4
+              and res_["opaque_vs_plain"] <= 1e-5 + eps_o,
+              f"ert {prec}: K1 vs the plain versions")
+        check(res_["grad_vs_plain_of_max"] <= tol_g,
+              f"ert {prec}: K3 vs the plain versions")
+        del t_ch, t_1, o_ch, o_off, g_ch, g_1, og_ch, pt_ch, po_ch, pg_ch
+
+        frames = {"transparent_8": frame("transparent",
+                                         cfg_of("transparent", prec, 8)),
+                  "transparent_1": frame("transparent",
+                                         cfg_of("transparent", prec, 1)),
+                  "opaque_4": frame("opaque", cfg_of("opaque", prec, 4)),
+                  "opaque_1": frame("opaque", cfg_of("opaque", prec, 1)),
+                  "opaque_eps0": frame("opaque", RenderConfig(
+                      precision=prec, early_stop_eps=0.0, sigma_scale=8.0))}
+        grads = {"grad_4": fwd_bwd("grad", cfg_of("grad", prec, 4)),
+                 "grad_1": fwd_bwd("grad", cfg_of("grad", prec, 1))}
+        with torch.no_grad():
+            res_["ms_per_frame"] = interleaved_ms(frames, 20)
+        res_["ms_per_fwd_bwd"] = interleaved_ms(grads, 5)
+        res_["device_ms"] = {}
+        for name, fn in (("transparent_8", frames["transparent_8"]),
+                         ("opaque_4", frames["opaque_4"]),
+                         ("grad_4", grads["grad_4"])):
+            total, top, _ = device_ms(fn, 3, n_top=4)
+            res_["device_ms"][name] = {"total": total, "by_kernel": top}
+        fr, fb = res_["ms_per_frame"], res_["ms_per_fwd_bwd"]
+        log(f"[bench] ert {prec} ms/frame: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in fr.items()) + "; ms/fwd+bwd: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in fb.items())
+            + f"; chunked speedup on the fog vs eps 0 "
+            f"{fr['opaque_eps0'] / fr['opaque_4']:.3f}, overhead on the "
+            f"sphere {fr['transparent_8'] / fr['transparent_1']:.3f}")
+        for name, d in res_["device_ms"].items():
+            log(f"[bench] ert {prec} {name} device ms: " + (
+                "not measured" if d["total"] is None else
+                f"{d['total']:.4f}; by kernel " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in d["by_kernel"])))
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[bench] ert phase in {out['seconds']:.1f} s")
+    log(json.dumps({"ert_chunks": out, "card": card}))
+    return {k: launches[k] for k in want}
 
 
 def finish(t_start):
@@ -3913,9 +4318,10 @@ def main(argv=None):
         launches_by_path[name]["dist_grad"] = sum(
             dist["grad"][p]["launches"][name] for p in dist["grad"])
     # 7. The benchmark's judged core; its K1/K3 launches join the counts.
-    bench_launches = bench_phase(dev)
+    bench_launches, ert_launches = bench_phase(dev)
     for name in ("sweep_fwd", "sweep_bwd"):
         launches_by_path[name]["bench"] = bench_launches[name]
+        launches_by_path[name]["ert_chunks"] = ert_launches[name]
     # 8. c5 on one card and on a data mesh; its counts join the launches.
     c5, c5_launches = c5_phase()
     for name, by_path in c5_launches.items():
@@ -3926,7 +4332,8 @@ def main(argv=None):
                 + sum(n for p, n in z_launches.get(name, {}).items()
                       if p.startswith("zshard_fit"))
                 + sum(launches_by_path[name].get(p, 0) for p in (
-                    "bench", "c5_fit", "zshard_grad", "dist_grad")))
+                    "bench", "ert_chunks", "c5_fit", "zshard_grad",
+                    "dist_grad")))
 
     def bound(bytes_ms, ops_ms):
         return {"bound_ms": max(bytes_ms, ops_ms),
@@ -3943,7 +4350,8 @@ def main(argv=None):
             "also_replaces": "tpuvr/kernels/sweep.py:491",
             "launches": (launches["sweep_fwd"] + sum(
                 launches_by_path["sweep_fwd"][p] for p in (
-                    "bench", "c5_fit", "zshard_grad", "dist_grad"))),
+                    "bench", "ert_chunks", "c5_fit", "zshard_grad",
+                    "dist_grad"))),
             "max_abs_err": sweep_err,
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],

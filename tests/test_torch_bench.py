@@ -197,8 +197,7 @@ def test_judged_run_returns_the_bench_line(smoke_line):
 
 def test_judged_run_full_adds_the_extended_set(monkeypatch):
     """``full`` adds bench.py's extended fields (timing stubbed out: one
-    call of each body), the slab-chunked ERT ones None until ert_chunks is
-    ported."""
+    call of each body), none of them None."""
     def once(body, carry, name, on_card):
         body(carry)
         return 1e-3
@@ -208,7 +207,7 @@ def test_judged_run_full_adds_the_extended_set(monkeypatch):
     assert set(out) == (set(CORE) | set(EXTENDED)) - {"vs_baseline"} | (
         PORT_ONLY)
     for k in EXTENDED:
-        assert (out[k] is None) == ("chunked" in k), k
+        assert out[k] is not None, k
 
 
 def test_judged_core_loop_lengths_are_bench_pys():

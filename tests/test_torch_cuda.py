@@ -1232,3 +1232,86 @@ def test_pixel_grad_error_of_the_kernels(card):
     own = (judged.pixel_grad(fixture, card)
            - judged.pixel_grad(fixture, "cpu")).abs().max()
     assert float(own) <= 1e-5 * float(fixture[1].abs().max())
+
+
+def _ert_frame(card, precision, chunks):
+    """A 24^3 @ 40^2 c2 frame (reverse sweep) at eps 1e-4 in ``chunks``
+    slabs, and its grid gradient: (render, fwd_bwd) closures."""
+    cam = configs.camera(configs.CONFIGS["c2"], 24, 40)
+    axis = dominant_axis(cam)
+    prep = render.prepare_grid(smoke_sphere(24, device=card), axes=(axis,),
+                               device=card)
+    cfg = RenderConfig(early_stop_eps=1e-4, precision=precision,
+                       ert_chunks=chunks)
+    gsc, smax = prep[axis]
+
+    def fwd_bwd():
+        g = gsc.detach().requires_grad_(True)
+        rgb, t = render.render_prepared({axis: (g, smax)}, cam, cfg)
+        (grad,) = torch.autograd.grad(torch.mean((rgb - 0.25) ** 2), g)
+        return rgb.detach(), t.detach(), grad
+
+    return (lambda: render.render_prepared(prep, cam, cfg)), fwd_bwd
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_ert_chunked_frame_matches_plain(card, precision, monkeypatch):
+    """A frame and its gradient in 4 slabs: K1 once and K3 once a slab,
+    against the same frame through the plain versions (eps * max|c| for
+    the image, GRAD_TOL of max|grad|), and within 2e-6 and GRAD_TOL of
+    the frame in one slab."""
+    _, fwd_bwd = _ert_frame(card, precision, 4)
+    before = (ksweep.launches[1], kbwd.launches[1])
+    rgb, t, grad = fwd_bwd()
+    assert (ksweep.launches[1] - before[0], kbwd.launches[1] - before[1]) \
+        == (4, 4)
+    one = _ert_frame(card, precision, 1)[1]()
+    monkeypatch.setattr(render, "resolve_impl", lambda impl, t: "torch")
+    plain = fwd_bwd()
+    for a, b in zip((rgb, t), plain[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 + 1e-4)
+    for a, b in zip((rgb, t), one[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-6)
+    tol = GRAD_TOL[precision] * float(plain[2].abs().max())
+    torch.testing.assert_close(grad, plain[2], rtol=0, atol=tol)
+    torch.testing.assert_close(grad, one[2], rtol=0, atol=tol)
+
+
+def test_ert_chunked_frame_makes_no_host_sync(card):
+    """The liveness gate stays on the device: a chunked frame and its
+    gradient run under sync debug mode "error"."""
+    frame, fwd_bwd = _ert_frame(card, "default", 4)
+    frame()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame()
+        fwd_bwd()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_light_volume_exact_on_the_card_matches_the_cpu(card):
+    """'persample' at 16^3 (16 directions, step 1) on the card's tensors:
+    the volume within 1e-5 of its maximum, the gradient of a seeded
+    weighted sum within GRAD_TOL of max|grad|, against the CPU."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.ops import lighting as olight
+
+    cfg = LightingConfig(mode="persample")
+    sig = smoke_sphere(16, device="cpu")[..., 0].contiguous()
+    w = torch.randn(sig.shape, generator=torch.Generator().manual_seed(2))
+
+    def run(dev):
+        s = sig.to(dev).requires_grad_(True)
+        vol = olight.light_volume_exact(s, cfg)
+        (grad,) = torch.autograd.grad((w.to(dev) * vol).sum(), s)
+        return vol.detach().cpu(), grad.cpu()
+
+    (v_c, g_c), (v, g) = run(card), run("cpu")
+    torch.testing.assert_close(v_c, v, rtol=0,
+                               atol=1e-5 * float(v.abs().max()))
+    torch.testing.assert_close(g_c, g, rtol=0, atol=GRAD_TOL["highest"]
+                               * float(g.abs().max()))

@@ -187,7 +187,6 @@ def test_render_stacks_views():
 
 @pytest.mark.parametrize("cfg,err", [
     (RenderConfig(mode="bogus"), ValueError),
-    (RenderConfig(ert_chunks=4), NotImplementedError),
 ])
 def test_unported_render_options_raise(cfg, err):
     with pytest.raises(err):

@@ -280,7 +280,9 @@ def run(device=None, smoke: bool = False, full: bool = False) -> dict:
     abs difference of the kernels' gradient from the plain version's on
     the same f32 inputs (None on the CPU), and
     ``pixel_grad_oracle_max_abs``, the oracle's scale. The
-    ``ert_chunked_*`` fields are None: ``ert_chunks`` > 1 is not ported.
+    ``ert_chunked_*`` fields time ``ert_chunks`` > 1 as ``bench.py`` does:
+    the opaque fog in 4 slabs against its frame without ERT, and the
+    smoke sphere in 8 slabs against the headline frame.
     """
     from tpuvr_torch.bench.roofline import (
         measured_active_fraction,
@@ -349,6 +351,13 @@ def run(device=None, smoke: bool = False, full: bool = False) -> dict:
             early_stop_eps=1e-3, precision=prec_fast, sigma_scale=8.0), dev)
         t_op_off = bench_fwd_prepared(fog, cam_in, RenderConfig(
             early_stop_eps=0.0, precision=prec_fast, sigma_scale=8.0), dev)
+        # Slab-chunked ERT: the fog in 4 slabs, and its cost on a scene
+        # that never terminates.
+        t_op_ch = bench_fwd_prepared(fog, cam_in, RenderConfig(
+            early_stop_eps=1e-3, precision=prec_fast, sigma_scale=8.0,
+            ert_chunks=4), dev)
+        t_tr_ch = bench_fwd_prepared(grid, cam, RenderConfig(
+            early_stop_eps=1e-4, precision=prec_fast, ert_chunks=8), dev)
         extra = {
             "fwd_f32_rays_per_s": rays / t_fwd_hi,
             "fwd_high_rays_per_s": rays / t_fwd_h3,
@@ -363,10 +372,10 @@ def run(device=None, smoke: bool = False, full: bool = False) -> dict:
             "fwd_noert_ms_per_frame": t_noert * 1e3,
             "ert_speedup": t_noert / t_fwd,
             "ert_speedup_opaque": t_op_off / t_op,
-            "ert_chunked_speedup_opaque": None,
-            "ert_chunked_overhead_transparent": None,
+            "ert_chunked_speedup_opaque": t_op_off / t_op_ch,
+            "ert_chunked_overhead_transparent": t_tr_ch / t_fwd,
             "fwd_opaque_ert_ms": t_op * 1e3,
-            "fwd_opaque_ert_chunked_ms": None,
+            "fwd_opaque_ert_chunked_ms": t_op_ch * 1e3,
             "fwd_opaque_noert_ms": t_op_off * 1e3,
         }
 

@@ -28,8 +28,8 @@ class RenderConfig:
       step_dt, max_steps: 'fixed_dt' parameters.
       early_stop_eps: transmittance threshold for early ray termination;
         0 disables it.
-      ert_chunks: slab chunks for whole-slab termination; only 1 is
-        ported.
+      ert_chunks: slab chunks of the slice axis for whole-slab early
+        termination (with early_stop_eps > 0); 1 disables it.
       use_occupancy: skip slices whose maximum density is <= 0 (lossless).
       occupancy_brick: brick edge of the occupancy grid (unused by the
         slice-level skip).
@@ -61,7 +61,8 @@ class LightingConfig:
     Attributes:
       mode: 'none', or 'lightvolume' (a sky-transmittance volume from
         ``n_samples`` directional tau sweeps, multiplied into the emission
-        channels). 'persample' is the oracle path, not ported yet.
+        channels), or 'persample' (the exact oracle: true secondary
+        marches from every voxel centre).
       n_samples: hemisphere directions.
       sky_intensity: radiance of the sky dome.
       up: world up axis (x, y, z) of the hemisphere.

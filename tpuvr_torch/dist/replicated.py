@@ -43,8 +43,15 @@ def render_view_dp(grid, cam, mesh: DataMesh,
     contract: every rank gets ``render_view``'s gradient.
 
     Returns (rgb (H, W, 3), trans (H, W)) on every rank. Raises ValueError
-    when the mesh's size does not divide the intermediate rows.
+    when the mesh's size does not divide the intermediate rows, and, before
+    any collective, for ``cfg.ert_chunks`` > 1 with ``cfg.early_stop_eps``
+    > 0: a rank's row tile does not cut its slices into slabs (the JAX
+    package's ``render_view_dp`` drops the setting without a word).
     """
+    if cfg.ert_chunks > 1 and cfg.early_stop_eps > 0.0:
+        raise ValueError(f"render_view_dp does not cut the slices into "
+                         f"slabs: ert_chunks {cfg.ert_chunks} needs "
+                         f"render_view")
     axis = dominant_axis(cam)
     grid = replicated(torch.as_tensor(grid, device=resolve_device(device)),
                       mesh)

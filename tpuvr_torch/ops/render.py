@@ -64,12 +64,9 @@ def _grid_shape_from_sweep(axis: int, gsc_shape):
 
 
 def _check_cfg(cfg: RenderConfig, modes=("plane_sweep",)):
-    """Refuse a mode outside ``modes`` ('fixed_dt' has no prepared form)
-    and the unported ``ert_chunks`` > 1."""
+    """Refuse a mode outside ``modes`` ('fixed_dt' has no prepared form)."""
     if cfg.mode not in modes:
         raise ValueError(f"render mode {cfg.mode!r} is not one of {modes}")
-    if cfg.ert_chunks != 1:
-        raise NotImplementedError("ert_chunks > 1 is not ported yet")
 
 
 def prepare_grid(
@@ -153,13 +150,20 @@ def render_prepared(
 ):
     """Render one view from a :func:`prepare_grid` result.
 
+    ``cfg.ert_chunks`` > 1 with ``cfg.early_stop_eps`` > 0 cuts the slice
+    axis into that many slabs, a dead slab (every ray it can reach below
+    eps) running with its steps disabled
+    (:func:`~tpuvr_torch.ops.vjp.ert_chunked_sweep`).
+
     Returns:
       (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).
     """
     plan, uv, args = sweep_inputs(prep, cam, cfg, device)
     op = sweep_op(plan.reverse, cfg.sigma_scale, cfg.early_stop_eps,
                   resolve_impl("auto", args[0]), cfg.precision)
-    rgb, trans = chunked_sweep(op, *args, max_rows=cfg.max_rows_per_call)
+    rgb, trans = chunked_sweep(op, *args, max_rows=cfg.max_rows_per_call,
+                               ert_chunks=cfg.ert_chunks,
+                               reverse=plan.reverse, eps=cfg.early_stop_eps)
     inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
     img = warp_to_pixels(inter, plan, uv)
     return img[..., :3], img[..., 3]
@@ -178,7 +182,8 @@ def render_view(
     ``cfg.mode='fixed_dt'`` marches each pixel's ray with a fixed step
     (``ref.march.render_fixed_dt``, after the lighting): the exact oracle,
     in plain PyTorch on the grid's device, slow and memory-hungry under
-    autograd (every step's gather is kept).
+    autograd (every step's gather is kept). It ignores ``cfg.ert_chunks``,
+    as the JAX package does.
 
     Returns:
       (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).

@@ -188,7 +188,123 @@ def _chunked_bwd(bwd_fn, n_chunks, grid_sc, coeffs, enables, dt_map, rgb,
     return torch.cat(parts, dim=0)
 
 
-def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
+def _future_coverage_masks(coeffs, enables, n_v, n_u, n_y, n_x, sc,
+                           n_chunks, row0=0):
+    """Per slab boundary, the (V, U) rays that a remaining slab can reach.
+
+    Ray row ``i`` takes a non-zero tent weight from traversal step ``k``
+    only if its position ``(row0 + i)*ay[k] + by[k]`` lies in the tent's
+    open support ``(-1, n_y)``, and likewise for columns; a step with
+    ``enables[k] == 0`` contributes nothing. Positions are f32, a product
+    and then a sum, each rounded: the forward kernel's and the twin's
+    arithmetic, whatever the grid's dtype. The separable OR over the
+    remaining steps, ``cov_v[i] & cov_u[j]``, is a superset of the rays
+    those steps reach, so a ray outside the mask takes exactly nothing from
+    any remaining slab. ``row0``: the ray planes are rows [row0, row0 + V)
+    of the op's image (a row chunk).
+
+    Returns a (n_chunks - 1, V, U) bool tensor on the coefficients'
+    device; entry ``g - 1`` guards slab ``g``. Single-view (1-D) coeffs
+    and enables only: a view batch's (views, S) would mis-broadcast the
+    OR, so it raises ValueError.
+    """
+    ay, by, ax, bx = (torch.as_tensor(c).to(torch.float32) for c in coeffs)
+    if ay.dim() != 1 or (enables is not None and enables.dim() != 1):
+        raise ValueError(
+            "ert_chunked_sweep supports single-view (1-D) coeffs and "
+            f"enables only; got coeffs of {ay.dim()} dims"
+            + ("" if enables is None else
+               f", enables of {enables.dim()}"))
+    dev = ay.device
+    i = torch.arange(row0, row0 + n_v, dtype=torch.float32,
+                     device=dev)[:, None]
+    pos_v = i * ay[None, :] + by[None, :]                 # (V, S)
+    j = torch.arange(n_u, dtype=torch.float32, device=dev)[:, None]
+    pos_u = j * ax[None, :] + bx[None, :]                 # (U, S)
+    valid_v = (pos_v > -1.0) & (pos_v < n_y)
+    valid_u = (pos_u > -1.0) & (pos_u < n_x)
+    if enables is not None:
+        en = (enables > 0)[None, :]
+        valid_v = valid_v & en
+        valid_u = valid_u & en
+
+    def remaining(valid):
+        """(n_chunks - 1, rays): covered by any step of slabs g.. ."""
+        per_slab = valid.reshape(valid.shape[0], n_chunks, sc).any(dim=2)
+        suffix = per_slab.flip(1).to(torch.int32).cumsum(1).flip(1) > 0
+        return suffix[:, 1:].T
+
+    return remaining(valid_v)[:, :, None] & remaining(valid_u)[:, None, :]
+
+
+def ert_chunked_sweep(op, grid_sc, coeffs, enables, dt_map, n_chunks,
+                      reverse, eps, row0=0):
+    """Slab-chunked forward with whole-slab early ray termination.
+
+    The slice axis is cut into ``n_chunks`` slabs in traversal order (slab
+    g is steps [g sc, (g + 1) sc), grid slices [S - (g + 1) sc, S - g sc)
+    under ``reverse``). Each slab is a fresh render of its slices through
+    ``op``, folded into the carry by the compositing identity
+    ``(C, T) + T (C_g, T_g)``. Before slab g >= 1 a liveness flag asks
+    whether any ray that a remaining slab can reach (the future-coverage
+    mask; background rays that miss the volume keep T = 1 for ever and
+    would hold every slab live) still has T >= ``eps``. Gradients flow
+    through every slab's sweep by autograd.
+
+    The flag stays on the device: it multiplies the slab's enables, so a
+    dead slab still launches its sweep, every step disabled. The forward
+    kernel walks such a slab without reading the grid and writes
+    ``C_g = 0``, ``T_g = 1`` exactly (as the twin does), so the fold leaves
+    the carry unchanged, and the backward gives the slab a zero gradient:
+    what the JAX package's ``lax.cond`` gives by skipping the slab. That
+    ``cond`` drops the launch; here it stays, because dropping it needs the
+    flag on the host, a sync at every slab boundary, and would make the
+    launch counts depend on the data. No call here reads a tensor back.
+
+    ``row0``: the ray planes are rows [row0, row0 + V) of the op's image
+    (a row chunk; the op itself must sample from row 0).
+    """
+    s = grid_sc.shape[0]
+    if s % n_chunks:
+        raise ValueError(f"ert_chunks {n_chunks} must divide slices {s}")
+    sc = s // n_chunks
+    n_v, n_u = dt_map.shape
+    masks = _future_coverage_masks(coeffs, enables, n_v, n_u,
+                                   grid_sc.shape[2], grid_sc.shape[3], sc,
+                                   n_chunks, row0)
+    # One autograd node: its backward joins the slabs' gradients once.
+    slabs = torch.split(grid_sc, sc, dim=0)
+    rgb = trans = None
+    for g in range(n_chunks):
+        tr = slice(g * sc, (g + 1) * sc)  # traversal-step range
+        slab = slabs[n_chunks - 1 - g if reverse else g]
+        en_g = enables[tr]
+        if g:
+            live = torch.amax(torch.where(masks[g - 1], trans.detach(),
+                                          0.0)) >= eps
+            en_g = en_g * live.to(en_g.dtype)
+        rgb_g, t_g = op(slab, tuple(c[tr] for c in coeffs), en_g, dt_map,
+                        row0=row0)
+        if g:
+            rgb, trans = rgb + trans[None] * rgb_g, trans * t_g
+        else:
+            rgb, trans = rgb_g, t_g
+    return rgb, trans
+
+
+def row_chunks(n_v: int, max_rows) -> int:
+    """Row chunks of :func:`chunked_sweep` for ``n_v`` rows: the fewest of
+    at most ``max_rows`` rows (None: one) that divide ``n_v`` evenly."""
+    if max_rows is None or n_v <= max_rows:
+        return 1
+    n_chunks = -(-n_v // max_rows)
+    while n_v % n_chunks:
+        n_chunks += 1
+    return n_chunks
+
+
+def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None,
+                  ert_chunks=1, reverse=False, eps=0.0):
     """Apply a sweep op over row chunks of the intermediate image.
 
     ``op`` is a :func:`sweep_op`; chunk ``i`` is one call of it with the
@@ -199,19 +315,28 @@ def chunked_sweep(op, grid_sc, coeffs, enables, dt_map, max_rows=None):
     aggressive as whole-image termination and keeps the same error bound.
     ``max_rows`` None disables chunking. Gradients flow through every
     chunk.
+
+    ``ert_chunks`` > 1 with ``eps`` > 0: each row chunk also cuts the slice
+    axis into slabs through :func:`ert_chunked_sweep` (``reverse`` is the
+    op's traversal order), whose whole-slab termination keeps the same
+    error bound. Otherwise each chunk is one call of ``op``.
     """
     n_v = dt_map.shape[0]
-    if max_rows is None or n_v <= max_rows:
-        return op(grid_sc, coeffs, enables, dt_map)
-    n_chunks = -(-n_v // max_rows)
-    while n_v % n_chunks:
-        n_chunks += 1
+
+    def call(dt_c, r0):
+        if ert_chunks > 1 and eps > 0.0:
+            return ert_chunked_sweep(op, grid_sc, coeffs, enables, dt_c,
+                                     ert_chunks, reverse, eps, row0=r0)
+        return op(grid_sc, coeffs, enables, dt_c, row0=r0)
+
+    n_chunks = row_chunks(n_v, max_rows)
+    if n_chunks == 1:
+        return call(dt_map, 0)
     rows = n_v // n_chunks
     rgbs, ts = [], []
     for i in range(n_chunks):
         r0 = i * rows
-        rgb_i, t_i = op(grid_sc, coeffs, enables, dt_map[r0:r0 + rows],
-                        row0=r0)
+        rgb_i, t_i = call(dt_map[r0:r0 + rows], r0)
         rgbs.append(rgb_i)
         ts.append(t_i)
     return torch.cat(rgbs, dim=1), torch.cat(ts, dim=0)

@@ -86,7 +86,7 @@ from tpuvr_torch.ops.render import (
     slice_enables,
     sweep_layout_to_grid,
 )
-from tpuvr_torch.ops.vjp import resolve_impl, sweep_op
+from tpuvr_torch.ops.vjp import chunked_sweep, resolve_impl, sweep_op
 from tpuvr_torch.ops.warp import (
     RowWarpPlan,
     lattice_positions,
@@ -1017,6 +1017,8 @@ def render_views_grouped(grid, cams, render_cfg: RenderConfig = RenderConfig(),
     views grouped as :func:`group_views` groups them, one sweep op and one
     sweep-layout grid per group, and per view the row-block warp (under
     ``TPUVR_WARP=rows``, where the group has a plan) or the 4-tap gather.
+    ``render_cfg.ert_chunks`` > 1 cuts each view's slices into slabs, as
+    ``render_view`` does (the JAX package's grouped render ignores it).
     Returns (N, H, W, 3)."""
     dev = resolve_device(device)
     with torch.no_grad():
@@ -1040,8 +1042,10 @@ def render_views_grouped(grid, cams, render_cfg: RenderConfig = RenderConfig(),
             stacked = {n: t.to(dev) for n, t in stacked.items()}
             for j, i in enumerate(idxs):
                 g = {n: t[j] for n, t in stacked.items()}
-                rgb, trans = op(grid_sc, tuple(g["coeffs"]),
-                                enables * g["valid"], g["dt"])
+                rgb, trans = chunked_sweep(
+                    op, grid_sc, tuple(g["coeffs"]), enables * g["valid"],
+                    g["dt"], ert_chunks=render_cfg.ert_chunks,
+                    reverse=reverse, eps=render_cfg.early_stop_eps)
                 inter = torch.cat([rgb, trans[None]], dim=0)
                 if row_op is not None:
                     img = row_op(inter, g["rwy"], g["rwx"], g["rwvb"])
