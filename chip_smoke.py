@@ -91,7 +91,18 @@ Phases, in order; any failure raises and exits non-zero:
      render_view_dp): 4 ranks one a card over NCCL with 4 cards or more,
      else 2 gloo ranks sharing card 0 (four ranks of 20-26 GiB do not fit
      in 80 GB);
-  9. print one JSON line per kernel (time, bound, plain and library
+  9. the outer shell (shell; ROADMAP A7): the TVOL codec at 256^3, native
+     against numpy both ways, bit for bit, timed; hollow_shell(256)
+     through render_view at the headline frame against device="cpu";
+     render_with_geom against render_view on a c2 orbit view at
+     oversample 2; the command line at full width through
+     tpuvr_torch.cli.main (render c3 to a PNG decoded back with zlib,
+     turntable c2 of 8 frames, fit c4 for 3 steps, bench c1 with a
+     profiler trace, gradcheck against its CPU run), each with its wall
+     time and launches; and tpuvr_torch.entry.dryrun_multichip(4) (4 ranks
+     one a card over NCCL with 4 cards, else 4 gloo ranks sharing card 0)
+     against its one-process step on the card;
+ 10. print one JSON line per kernel (time, bound, plain and library
      yardsticks), the cards nvidia-smi lists, the card's name and power
      limit from nvidia-smi, and last {"ok": true, "device": {...}}.
 Without a card it exits non-zero before printing any result.
@@ -113,12 +124,13 @@ directions, c3's prepare_grid, the lit fit's first-step gradient), also in
 a tree that has only the one-direction tau wrappers. ``--phase bench``
 runs the build (K1, K3) and phase 7 alone, ``--phase c5`` the build (K1,
 K2, K3) and phase 8 alone (on one card, or with four cards its mesh over
-NCCL).
+NCCL), ``--phase shell`` the build (K1-K4) and phase 9 alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -4000,6 +4012,284 @@ def ert_phase(dev, card):
     return {k: launches[k] for k in want}
 
 
+def read_png(path):
+    """(H, W, 3) uint8 pixels of an 8-bit RGB PNG of one IDAT with filter
+    0 rows (``io.image.write_png``'s), decoded with zlib alone; every
+    chunk's CRC checked."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        check(crc == zlib.crc32(kind + body), f"{path}: bad CRC in {kind}")
+        chunks[kind] = body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    check((depth, color) == (8, 2) and b"IEND" in chunks,
+          f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def shell_cli(run_root):
+    """The command line at full width on the card: each command through
+    ``tpuvr_torch.cli.main``, with its wall time and its kernels' launches
+    (the counts set to 0 just before it and read just after)."""
+    from tpuvr_torch import cli, configs
+    from tpuvr_torch.io.image import to_uint8
+
+    size = {k: configs.CONFIGS[k]["res"] for k in ("c2", "c3")}
+    png = os.path.join(run_root, "c3.png")
+    commands = {
+        "render": ["render", "--config", "c3", "--out", png],
+        "turntable": ["turntable", "--config", "c2", "--frames", "8",
+                      "--out-dir", os.path.join(run_root, "turntable")],
+        "fit": ["fit", "--config", "c4", "--steps", "3", "--run-dir",
+                os.path.join(run_root, "fit")],
+        "bench": ["bench", "--config", "c1", "--profile",
+                  os.path.join(run_root, "trace")],
+        "gradcheck": ["gradcheck"],
+    }
+    out = {}
+    for name, argv in commands.items():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        out[name] = {"wall_s": wall, "launches": counts}
+        log(f"[shell] cli {' '.join(argv)}: {wall:.3f} s; launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+        if name == "render":
+            check(got.shape == (size["c3"], size["c3"], 3)
+                  and np.isfinite(got).all() and got.max() > 0.0,
+                  "cli render: image")
+            check(np.array_equal(read_png(png), to_uint8(got)),
+                  "cli render: the PNG is not tonemap of the image")
+            check(counts["tau_sweep"] == 1 and counts["sweep_fwd"] == 1,
+                  "cli render: one light bake and one sweep expected")
+        elif name == "turntable":
+            frames = sorted(Path(argv[-1]).glob("frame_*.png"))
+            check(got["frames"] == 8 and len(frames) == 8,
+                  "cli turntable: 8 frames")
+            check(all(read_png(f).shape == (size["c2"], size["c2"], 3)
+                      for f in frames), "cli turntable: frame shapes")
+            check(counts["sweep_fwd"] == 8, "cli turntable: one K1 a frame")
+        elif name == "fit":
+            out[name].update(got, cards=torch.cuda.device_count())
+            check(got["steps"] == 3 and np.isfinite(got["final_loss"])
+                  and got["psnr_db"] > 0.0, f"cli fit: {got}")
+            # One card: 64 targets and 64 evaluation renders, one K1 each;
+            # 3 steps of one view batch each way. With more cards the fit
+            # runs on one rank a card, which count their own launches.
+            check(torch.cuda.device_count() > 1 or (
+                counts["sweep_fwd"] == 128 and counts["sweep_fwd_views"] == 3
+                and counts["sweep_bwd_views"] == 3),
+                "cli fit: 128 K1, 3 K5 and 3 K6 expected")
+        elif name == "bench":
+            out[name]["rows"] = got
+            check(got[0] == {"trace_dir": argv[-1]} and os.path.getsize(
+                os.path.join(argv[-1], "trace.json")) > 0,
+                "cli bench: no trace")
+            check(got[1]["ms_per_frame"] > 0.0 and got[-1]["device"]
+                  == torch.cuda.get_device_name(0), "cli bench: rows")
+            check(0.0 < got[-1]["sol_fraction"] <= 1.05,
+                  f"cli bench: sol_fraction {got[-1]['sol_fraction']}")
+            check(counts["sweep_fwd"] > 2, "cli bench: K1 not launched")
+        else:
+            out[name].update(got)
+            check(counts["sweep_fwd"] == 1 + 2 * got["probes"]
+                  and counts["sweep_bwd"] == 1,
+                  "cli gradcheck: K1 and K3 launches")
+    # The error is mostly the f32 central difference's: the loss (at most
+    # 4 res^2 = 1024 at gradcheck's 16^2) is summed in another order on the
+    # card, and each ulp
+    # of it moves the difference quotient by ulp / (2 h). The card's error
+    # is held within the plain versions' on the same arguments plus two
+    # such ulps.
+    plain = cli.main(["gradcheck", "--device", "cpu"])
+    noise = 2 * float(np.spacing(np.float32(4 * 16**2))) / (2 * 1e-3)
+    out["gradcheck"]["cpu_max_abs_err_vs_fd"] = plain["max_abs_err_vs_fd"]
+    check(out["gradcheck"]["max_abs_err_vs_fd"]
+          <= plain["max_abs_err_vs_fd"] + noise,
+          f"cli gradcheck: card {out['gradcheck']} against cpu {plain} "
+          f"(tol + {noise:.3e})")
+    return out
+
+
+def shell_phase(dev):
+    """The outer shell (ROADMAP A7) on the card: the TVOL codec at 256^3
+    (native against numpy, both ways), hollow_shell(256) through
+    render_view at the headline frame against device="cpu",
+    render_with_geom against render_view at oversample 2, the command line
+    at full width (``shell_cli``), and ``dryrun_multichip(4)`` against its
+    one-process step. Returns (summary, launches by path)."""
+    from tpuvr_torch import configs, entry
+    from tpuvr_torch.config import RenderConfig
+    from tpuvr_torch.io import volume
+    from tpuvr_torch.io.synth import hollow_shell, smoke_sphere
+    from tpuvr_torch.ops import render
+    from tpuvr_torch.ops.geometry import view_geometry
+
+    summary = {"card": card_name_and_limit()}
+    run_root = tempfile.mkdtemp(prefix=".chip_smoke_shell_",
+                                dir=Path(__file__).resolve().parent)
+    try:
+        # (a) TVOL: native and numpy codecs, bit for bit both ways.
+        check(volume._lib() is not None, "the native TVOL codec did not load")
+        head = configs.CONFIGS["headline"]
+        vol = smoke_sphere(head["grid_n"], device=dev).cpu().numpy()
+        a, b = os.path.join(run_root, "a.tvol"), os.path.join(run_root,
+                                                             "b.tvol")
+        times = {}
+        for key, fn in (("native_write_s", lambda: volume.save_tvol(a, vol)),
+                        ("numpy_write_s",
+                         lambda: volume._save_tvol_numpy(b, vol, True)),
+                        ("native_read_s", lambda: volume.load_tvol(b)),
+                        ("numpy_read_s",
+                         lambda: volume._load_tvol_numpy(a))):
+            t0 = time.perf_counter()
+            got = fn()
+            times[key] = time.perf_counter() - t0
+            if got is not None:
+                check(np.array_equal(got.view(np.uint32),
+                                     vol.view(np.uint32)),
+                      f"TVOL {key}: not bit for bit")
+        same = Path(a).read_bytes() == Path(b).read_bytes()
+        check(same, "TVOL: native and numpy files differ")
+        summary["tvol"] = dict(times, bytes=os.path.getsize(a),
+                               shape=list(vol.shape))
+        log(f"[shell] TVOL smoke_sphere({head['grid_n']}) "
+            f"{os.path.getsize(a)} bytes: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+            + "; native and numpy files equal, reads bit for bit")
+        del vol
+
+        # (b) hollow_shell(256) at the headline frame, card against CPU.
+        cam = configs.camera(head)
+        cfg = RenderConfig(early_stop_eps=0.0)
+        shell = hollow_shell(head["grid_n"], device=dev)
+        # The card's f64 cosine may round to another f32 than the CPU's.
+        grid_err = float((shell.cpu() - hollow_shell(
+            head["grid_n"], device="cpu")).abs().max())
+        check(grid_err <= 1e-6, f"hollow_shell: card and CPU grids differ "
+              f"by {grid_err:.3e}")
+        reset_counts()
+        card = render.render_view(shell, cam, cfg)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        t0 = time.perf_counter()
+        ref = render.render_view(shell.cpu(), cam, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = max_err([o.cpu() for o in card], ref)
+        empty = float((shell[..., 0] == 0).float().mean())
+        summary["hollow_shell"] = dict(max_abs_err=err, cpu_s=cpu_s,
+                                       empty_share=empty,
+                                       grid_vs_cpu=grid_err)
+        log(f"[shell] hollow_shell({head['grid_n']}) front ortho @ "
+            f"{cam.res_x}^2 highest eps 0, "
+            f"card vs cpu: max abs err {err:.3e} (tol 1e-5); the grid "
+            f"vs the CPU's {grid_err:.3e}; empty voxels "
+            f"{empty:.4f}; K1 launches {counts['sweep_fwd']}; CPU "
+            f"{cpu_s:.2f} s")
+        check(err <= 1e-5 and counts["sweep_fwd"] == 1,
+              "hollow_shell render card vs cpu")
+        del shell, card, ref
+
+        # (c) render_with_geom against render_view, a c2 orbit view at
+        # oversample 2.
+        c2 = configs.CONFIGS["c2"]
+        cfg = dataclasses.replace(c2["render"], oversample=2.0)
+        cam = configs.camera(c2)
+        grid = smoke_sphere(c2["grid_n"], device=dev)
+        axis, reverse, geom, band = view_geometry(
+            cam, tuple(grid.shape), oversample=cfg.oversample)
+        reset_counts()
+        got = render.render_with_geom(grid, geom, axis, reverse, cfg,
+                                      band=band)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = render.render_view(grid, cam, cfg)
+        err = max_err(got, want)
+        summary["render_with_geom"] = dict(max_abs_err=err,
+                                           rows=int(geom["dt"].shape[0]))
+        log(f"[shell] render_with_geom c2 at oversample 2 "
+            f"({geom['dt'].shape[0]} rows) vs render_view: max abs err "
+            f"{err:.3e} (tol 1e-5); K1 launches {counts['sweep_fwd']}")
+        check(err <= 1e-5 and counts["sweep_fwd"] == 1,
+              "render_with_geom vs render_view")
+        del grid
+
+        # (d) The command line.
+        summary["cli"] = shell_cli(run_root)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+
+    # (e) The dry run on 4 ranks against one process on the card.
+    ranks = 4
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(ranks)
+    wall = time.perf_counter() - t0
+    ref = entry.dryrun_reference(ranks)
+    n_z = entry.dryrun_layout(ranks)[1]
+    sz = entry.DRYRUN_GRID // n_z
+    scale = float(np.abs(ref["grad"]).max())
+    ring_scale = float(np.abs(ref["ring_grad"]).max())
+    live = np.abs(ref["grad"]) > 1e-6
+    errs = {"loss": 0.0, "grad": 0.0, "slab": 0.0, "ring_grad": 0.0}
+    for res in out:
+        d = res["z"]
+        m = live[d * sz:(d + 1) * sz]
+        errs["loss"] = max(errs["loss"], abs(res["loss"] - ref["loss"])
+                           / ref["loss"])
+        errs["grad"] = max(errs["grad"], float(np.abs(
+            res["grad"] - ref["grad"]).max()) / scale)
+        errs["slab"] = max(errs["slab"], float(np.abs(
+            res["slab"] - ref["params"][d * sz:(d + 1) * sz])[m].max()))
+        errs["ring_grad"] = max(errs["ring_grad"], float(np.abs(
+            res["ring_grad"] - ref["ring_grad"]).max()) / ring_scale)
+        check(res["launches"].get("sweep_fwd", 0) > 0
+              and res["launches"].get("sweep_bwd", 0) > 0,
+              f"dry run rank: no K1 or K3 launch ({res['launches']})")
+    backend = "nccl" if torch.cuda.device_count() >= ranks else "gloo"
+    # 1e-5 of max|grad|, and the roundoff of the sum over the ranks.
+    grad_tol = 1e-5 + 3 * 2.0**-24 * ranks
+    summary["dryrun"] = dict(ranks=ranks, backend=backend, wall_s=wall,
+                             digests=[r["digest"] for r in out],
+                             launches=out[0]["launches"], **{
+                                 f"{k}_err": v for k, v in errs.items()})
+    log(f"[shell] dryrun_multichip({ranks}) over {backend}: {wall:.2f} s; "
+        f"loss {out[0]['loss']:.6f} vs one process {ref['loss']:.6f} "
+        f"(rel {errs['loss']:.2e}, tol 1e-6); gradient "
+        f"{errs['grad']:.2e} of max|grad| (tol {grad_tol:.2e}); slabs "
+        f"{errs['slab']:.2e} where |g| > 1e-6 (tol 1e-6); ring gradient "
+        f"{errs['ring_grad']:.2e} of max|grad| (tol {grad_tol:.2e}); slab "
+        f"digests "
+        + " ".join(r["digest"][:12] for r in out))
+    check(errs["loss"] <= 1e-6 and errs["grad"] <= grad_tol
+          and errs["slab"] <= 1e-6 and errs["ring_grad"] <= grad_tol,
+          "dry run against the one-process step")
+    for r, res in enumerate(out):
+        check(res["digest"] == out[r % n_z]["digest"],
+              "dry run: the ranks of a slab differ")
+    paths = {f"shell_{k}": v["launches"] for k, v in summary["cli"].items()}
+    paths["shell_dryrun"] = collections.Counter()
+    for res in out:
+        paths["shell_dryrun"].update(
+            {k: v for k, v in res["launches"].items()
+             if not k.startswith("collective_")})
+    return summary, paths
+
+
 def finish(t_start):
     """The cards, the card's name and power limit, and the contract line."""
     cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
@@ -4018,7 +4308,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phase",
                         choices=("all", "dist", "zshard", "warp", "bwd",
-                                 "fwd", "light", "bench", "c5"),
+                                 "fwd", "light", "bench", "c5", "shell"),
                         default="all",
                         help="'dist': build, then the data-parallel path "
                              "alone; 'zshard': build, then the z-sharded "
@@ -4037,7 +4327,10 @@ def main(argv=None):
                              "extended set), its scaling row and the c1 "
                              "fixed-step frame; 'c5': build, then c5 (512^3 "
                              "lit at 1024^2) on one card and on a data mesh, "
-                             "with the scaling table at its frame")
+                             "with the scaling table at its frame; 'shell': "
+                             "build, then the outer shell (TVOL codec, "
+                             "hollow_shell, render_with_geom, the command "
+                             "line, the 4-rank dry run)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4064,6 +4357,8 @@ def main(argv=None):
                          "zshard": ("sweep_fwd", "sweep_bwd"),
                          "bench": ("sweep_fwd", "sweep_bwd"),
                          "c5": ("sweep_fwd", "sweep_bwd", "tau_sweep"),
+                         "shell": ("sweep_fwd", "sweep_bwd", "tau_sweep",
+                                   "tau_adj"),
                          "light": ("tau_sweep", "tau_adj")}.get(
                              opts.phase, _build.SOURCES))
     log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
@@ -4097,6 +4392,10 @@ def main(argv=None):
     if opts.phase == "c5":
         c5, _ = c5_phase()
         log(json.dumps({"c5": c5}))
+        return finish(t_start)
+    if opts.phase == "shell":
+        shell, _ = shell_phase(dev)
+        log(json.dumps({"shell": shell}))
         return finish(t_start)
 
     # 2. Kernels against their plain versions, on the card.
@@ -4326,6 +4625,12 @@ def main(argv=None):
     c5, c5_launches = c5_phase()
     for name, by_path in c5_launches.items():
         launches_by_path[name].update(by_path)
+    # 9. The outer shell; each of its paths' counts joins the launches.
+    shell, shell_launches = shell_phase(dev)
+    for path, counts in shell_launches.items():
+        for name, by_path in launches_by_path.items():
+            by_path[path] = counts.get(name, 0)
+    shell_paths = tuple(shell_launches)
 
     def train_launches(name):
         return (sum(train[p]["launches"][name] for p in train_paths)
@@ -4333,13 +4638,13 @@ def main(argv=None):
                       if p.startswith("zshard_fit"))
                 + sum(launches_by_path[name].get(p, 0) for p in (
                     "bench", "ert_chunks", "c5_fit", "zshard_grad",
-                    "dist_grad")))
+                    "dist_grad", *shell_paths)))
 
     def bound(bytes_ms, ops_ms):
         return {"bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
-    # 9. Summary.
+    # 10. Summary.
     head = sweep_ms["headline"]
     bc4 = bwd["by_config"]["c4"]
     kernels = [
@@ -4351,7 +4656,7 @@ def main(argv=None):
             "launches": (launches["sweep_fwd"] + sum(
                 launches_by_path["sweep_fwd"][p] for p in (
                     "bench", "ert_chunks", "c5_fit", "zshard_grad",
-                    "dist_grad"))),
+                    "dist_grad", *shell_paths))),
             "max_abs_err": sweep_err,
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
@@ -4376,7 +4681,9 @@ def main(argv=None):
             "replaces": "tpuvr/kernels/lighting.py:33",
             "also_replaces": "tpuvr/kernels/lighting.py:176",
             "launches": (launches["tau_sweep"]
-                         + launches_by_path["tau_sweep"]["c5_fit"]),
+                         + launches_by_path["tau_sweep"]["c5_fit"]
+                         + sum(launches_by_path["tau_sweep"][p]
+                               for p in shell_paths)),
             "launches_by_path": launches_by_path["tau_sweep"],
             "directions_by_path": launches_by_path["tau_sweep_dirs"],
             "directions_per_launch": (launches["tau_sweep_dirs"]
@@ -4527,6 +4834,7 @@ def main(argv=None):
     log(json.dumps({"dist": dist}))
     log(json.dumps({"zshard": zshard}))
     log(json.dumps({"c5": c5}))
+    log(json.dumps({"shell": shell}))
     log(json.dumps({"kernels": kernels}))
     return finish(t_start)
 

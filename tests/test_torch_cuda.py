@@ -1315,3 +1315,52 @@ def test_light_volume_exact_on_the_card_matches_the_cpu(card):
                                atol=1e-5 * float(v.abs().max()))
     torch.testing.assert_close(g_c, g, rtol=0, atol=GRAD_TOL["highest"]
                                * float(g.abs().max()))
+
+
+@pytest.mark.parametrize("oversample", [1.0, 2.0])
+def test_render_with_geom_on_the_card_matches_the_cpu(card, oversample):
+    """``render_with_geom`` from a c2 orbit view's geometry at 32^3 @ 48^2:
+    K1 on the card against the plain version on the CPU (eps 0: 1e-5), with
+    the grid gradient of sum(rgb^2) + sum(T) within GRAD_TOL of max|grad|,
+    one K1 and one K3 launch."""
+    from tpuvr_torch.ops.geometry import view_geometry
+
+    cfg = RenderConfig(early_stop_eps=0.0, oversample=oversample)
+    cam = configs.camera(configs.CONFIGS["c2"], 32, 48)
+    axis, reverse, geom, band = view_geometry(cam, (32, 32, 32, 4),
+                                              oversample=oversample)
+    grid = smoke_sphere(32, device="cpu")
+
+    def run(dev):
+        g = grid.to(dev).requires_grad_(True)
+        rgb, t = render.render_with_geom(g, geom, axis, reverse, cfg,
+                                         band=band, device=dev)
+        (grad,) = torch.autograd.grad((rgb * rgb).sum() + t.sum(), g)
+        return rgb.detach().cpu(), t.detach().cpu(), grad.cpu()
+
+    before = (ksweep.launches[1], kbwd.launches[1])
+    on_card = run(card)
+    assert (ksweep.launches[1] - before[0], kbwd.launches[1] - before[1]) \
+        == (1, 1)
+    rgb, t, grad = run("cpu")
+    torch.testing.assert_close(on_card[0], rgb, rtol=0, atol=1e-5)
+    torch.testing.assert_close(on_card[1], t, rtol=0, atol=1e-5)
+    torch.testing.assert_close(on_card[2], grad, rtol=0, atol=GRAD_TOL[
+        "highest"] * float(grad.abs().max()))
+
+
+def test_cli_render_on_the_card(card, tmp_path):
+    """``python -m tpuvr_torch.cli render`` at 32^3 (c1 at scale 0.5, 128^2)
+    runs on the card by default, with one K1 launch, and equals its
+    ``--device cpu`` run within 1e-5."""
+    from tpuvr_torch import cli
+
+    argv = ["render", "--config", "c1", "--scale", "0.5",
+            "--out", str(tmp_path / "c1.png")]
+    before = ksweep.launches[1]
+    on_card = cli.main(argv)
+    assert ksweep.launches[1] - before == 1
+    plain = cli.main(argv + ["--device", "cpu"])
+    assert on_card.shape == (128, 128, 3)
+    np.testing.assert_allclose(on_card, plain, rtol=0, atol=1e-5)
+    assert (tmp_path / "c1.png").stat().st_size > 0

@@ -468,6 +468,41 @@ def dpgrad_case(mesh, *, device, grid, cam, cfg):
         _t(grid, device), mesh)
 
 
+def geomgrad_case(mesh, *, device, grid, cam, cfg):
+    """``render_with_geom`` of a numpy grid over every rank, from the
+    camera's ``view_geometry`` at ``cfg.oversample``: as
+    :func:`dpgrad_case`."""
+    from tpuvr_torch.ops.geometry import view_geometry
+    from tpuvr_torch.ops.render import render_with_geom
+
+    axis, reverse, geom, band = view_geometry(cam, tuple(grid.shape),
+                                              oversample=cfg.oversample)
+    return _grad_case(
+        lambda g: render_with_geom(g, geom, axis, reverse, cfg, mesh=mesh,
+                                   band=band, device=device),
+        _t(grid, device), mesh)
+
+
+def fit_refusal_case(mesh, *, device, render_cfg):
+    """``fit_grid`` on the mesh with a render config it must refuse: the
+    ValueError's message (None if it ran) and the collectives this rank
+    issued before it."""
+    from tpuvr_torch.config import TrainConfig
+    from tpuvr_torch.configs import front_ortho
+    from tpuvr_torch.dist import init
+    from tpuvr_torch.train.fit import fit_grid
+
+    before = sum(init.collectives.values())
+    try:
+        fit_grid(np.zeros((1, 8, 8, 3), np.float32), [front_ortho(8, 8)],
+                 (8, 8, 8, 4), TrainConfig(steps=1, ckpt_every=0),
+                 render_cfg, mesh=mesh, device=device)
+        message = None
+    except ValueError as e:
+        message = str(e)
+    return message, sum(init.collectives.values()) - before
+
+
 def grad_collectives_case(mesh, *, device, layout):
     """Each differentiable collective of ``tpuvr_torch.dist.init`` in f64,
     forward and backward, on small tensors of this rank's values and

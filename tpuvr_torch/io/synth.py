@@ -37,6 +37,39 @@ def smoke_sphere(n: int, dtype=torch.float32, device=None):
     return torch.stack([sigma, r, g, b], dim=-1)
 
 
+def hollow_shell(n: int, r0: float = 0.35, width: float = 0.06,
+                 amp: float | None = None, dtype=torch.float32, device=None):
+    """Hollow spherical shell of shape (n, n, n, 4) with density exactly
+    zero off the shell.
+
+    The stress scene for empty-space skipping: every slice through the
+    sphere touches density, yet most of each slice and the whole interior
+    are empty. Density is a truncated raised cosine over ``|r - r0*n| <
+    width*n`` (``amp`` at the centre of the wall, by default about optical
+    depth 1.5 through one wall); emission ramps as in :func:`smoke_sphere`.
+    Built on ``device`` (``None`` means the card). The square root and the
+    cosine are taken in float64 and rounded to ``dtype``, which on the CPU
+    rounds them correctly, as the JAX package's are (PyTorch's float32
+    versions can be an ulp off): the two packages' shells agree bit for
+    bit there. The card's float64 cosine is not correctly rounded, so a
+    value built there may be an ulp off.
+    """
+    dev = resolve_device(device)
+    c = (n - 1) / 2.0
+    ax = torch.arange(n, dtype=dtype, device=dev)
+    z, y, x = torch.meshgrid(ax, ax, ax, indexing="ij")
+    r = torch.sqrt(((x - c) ** 2 + (y - c) ** 2 + (z - c) ** 2).double())
+    d = torch.abs(r.to(dtype) - r0 * n)
+    w = width * n
+    if amp is None:
+        amp = 24.0 / n
+    cos = torch.cos((math.pi * d / w).double()).to(dtype)
+    sigma = torch.where(d < w, amp * 0.5 * (1.0 + cos), 0.0)
+    ramp = (x + y + z) / (3.0 * max(n - 1, 1))
+    return torch.stack([sigma, 0.9 * ramp + 0.1, 0.5 * torch.ones_like(ramp),
+                        1.0 - 0.8 * ramp], dim=-1)
+
+
 def orbit_cameras(
     n_views: int,
     grid_n: int,

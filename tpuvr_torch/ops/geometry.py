@@ -306,8 +306,10 @@ def warp_to_pixels(intermediate, plan: SweepPlan,
     return _bilinear(intermediate, x, y, plan.n_v, plan.n_u)
 
 
-def view_geometry(cam, grid_shape, dtype=torch.float32):
-    """One view's sweep geometry as CPU tensors, for the training step.
+def view_geometry(cam, grid_shape, dtype=torch.float32, oversample=1.0):
+    """One view's sweep geometry as CPU tensors, for the training step;
+    ``oversample`` is ``RenderConfig.oversample`` (the intermediate
+    lattice's density for a non-separable camera).
 
     Returns (axis, reverse, geom, band) with geom = {
       'coeffs': (4, S) [ay, by, ax, bx] in traversal order,
@@ -321,7 +323,7 @@ def view_geometry(cam, grid_shape, dtype=torch.float32):
     from tpuvr_torch.ref.camera import dominant_axis
 
     axis = dominant_axis(cam)
-    plan, uv_pixel = plan_sweep(cam, grid_shape, axis)
+    plan, uv_pixel = plan_sweep(cam, grid_shape, axis, oversample=oversample)
     if uv_pixel is None:
         u0, du, v0, dv = plan.lattice
         uu, vv = np.meshgrid(u0 + du * np.arange(plan.n_u),

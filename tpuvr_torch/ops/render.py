@@ -18,12 +18,14 @@ import torch
 
 from tpuvr_torch.config import LightingConfig, RenderConfig
 from tpuvr_torch.device import resolve_device
+from tpuvr_torch.dist.init import gather_tiles, replicated
 from tpuvr_torch.ops.geometry import (
     plan_sweep,
     plan_valid_mask,
     ray_dt,
     slice_coeffs,
     warp_to_pixels,
+    warp_to_pixels_dynamic,
 )
 from tpuvr_torch.ops.vjp import chunked_sweep, resolve_impl, sweep_op
 from tpuvr_torch.ref.camera import camera_rays, dominant_axis
@@ -202,6 +204,70 @@ def render_view(
     prep = prepare_grid(grid, axes=(axis,), lighting=lighting,
                         precision=cfg.precision, device=device)
     return render_prepared(prep, cam, cfg, device=device)
+
+
+def render_with_geom(
+    grid,
+    geom,
+    axis: int,
+    reverse: bool,
+    cfg: RenderConfig = RenderConfig(),
+    mesh=None,
+    band: Optional[tuple] = None,
+    device=None,
+):
+    """Render one view from its per-view geometry tensors: ``geom`` is the
+    dict of :func:`~tpuvr_torch.ops.geometry.view_geometry` (which also
+    gives ``axis`` and ``reverse``), the training path's form of a camera.
+    ``band`` (its band bound) is accepted and unused: the port's kernels
+    have no tiles. Differentiable with respect to ``grid``.
+
+    With ``mesh`` (a :class:`~tpuvr_torch.dist.init.DataMesh`; every rank
+    calls with the same arguments), rank r sweeps intermediate rows
+    [r V/n, (r + 1) V/n) at their own positions (the sweep op's ``row0``;
+    the JAX package shifts ``by`` instead, which moves a position by up to
+    an ulp), the tiles are gathered on every rank, and each rank warps the
+    whole image. The grid's gradient is then ``render_view_dp``'s: the
+    one-process gradient on every rank. A ValueError, before any
+    collective, when the ranks do not divide the rows, and for
+    ``cfg.ert_chunks`` > 1 with ``cfg.early_stop_eps`` > 0 on a mesh.
+
+    Returns (rgb (H, W, 3), transmittance (H, W)).
+    """
+    _check_cfg(cfg)
+    dev = resolve_device(device)
+    grid = torch.as_tensor(grid, device=dev)
+    geom = {k: torch.as_tensor(v, device=dev) for k, v in geom.items()}
+    dt_map = geom["dt"]
+    r0, rows = 0, dt_map.shape[0]
+    if mesh is not None:
+        if rows % mesh.world:
+            raise ValueError(f"intermediate rows {rows} not divisible by "
+                             f"mesh size {mesh.world}")
+        if cfg.ert_chunks > 1 and cfg.early_stop_eps > 0.0:
+            raise ValueError(f"render_with_geom does not cut a rank's row "
+                             f"tile into slabs: ert_chunks "
+                             f"{cfg.ert_chunks} needs mesh=None")
+        rows //= mesh.world
+        r0 = mesh.rank * rows
+        grid = replicated(grid, mesh)
+    grid_sc = grid_to_sweep_layout(grid, axis)
+    enables = slice_enables(grid_sc, reverse, cfg.use_occupancy)
+    if "valid" in geom:
+        enables = enables * geom["valid"]
+    op = sweep_op(reverse, cfg.sigma_scale, cfg.early_stop_eps,
+                  resolve_impl(None, grid_sc), cfg.precision, row0=r0)
+    rgb, trans = chunked_sweep(op, grid_sc, tuple(geom["coeffs"]), enables,
+                               dt_map[r0:r0 + rows],
+                               max_rows=cfg.max_rows_per_call,
+                               ert_chunks=cfg.ert_chunks, reverse=reverse,
+                               eps=cfg.early_stop_eps)
+    inter = torch.cat([rgb, trans[None]], dim=0)
+    if mesh is not None:
+        inter = gather_tiles(inter, mesh, 1)
+    img = warp_to_pixels_dynamic(inter.permute(1, 2, 0), geom["lattice"],
+                                 geom["uv"])
+    return img[..., :3], img[..., 3]
 
 
 def render(grid, cams, cfg: RenderConfig = RenderConfig(), **kw):

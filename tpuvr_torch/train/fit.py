@@ -80,6 +80,7 @@ from tpuvr_torch.ops.geometry import (
     warp_to_pixels_owned,
 )
 from tpuvr_torch.ops.render import (
+    _check_cfg,
     grid_to_sweep_layout,
     prepare_grid,
     render_prepared,
@@ -193,9 +194,9 @@ def band_tiles(band, n_v, n_u, n_y, n_x):
 
 
 def group_views(cams, grid_shape, rays_per_view: Optional[int] = None,
-                n_shards: int = 1):
+                n_shards: int = 1, oversample: float = 1.0):
     """Group cameras by sweep signature and stack their geometry (on the
-    host).
+    host), each view's at ``oversample`` (``RenderConfig.oversample``).
 
     Returns {(axis, reverse, tiles): (view_indices, stacked_geom, band,
     warp)} with ``band`` the group's (max |ay|, max |ax|, min |ay|,
@@ -214,7 +215,8 @@ def group_views(cams, grid_shape, rays_per_view: Optional[int] = None,
     """
     groups: Dict[Tuple[int, bool, tuple], Tuple[List, List, List]] = {}
     for i, cam in enumerate(cams):
-        axis, reverse, geom, band = view_geometry(cam, grid_shape)
+        axis, reverse, geom, band = view_geometry(cam, grid_shape,
+                                                  oversample=oversample)
         n_v, n_u = geom["dt"].shape
         dims_p = [grid_shape[d] for d in GRID_PERM[axis][:3]]
         rows = band_rows(rays_per_view, n_v, n_u, n_shards)
@@ -702,7 +704,11 @@ def fit_grid(
       targets: (N, H, W, 3) posed view images (numpy or tensor).
       cams: list of N cameras.
       grid_shape: (Z, Y, X, 4) of the grid to recover.
-      cfg/render_cfg: training and renderer configs.
+      cfg/render_cfg: training and renderer configs. The views' lattices
+        take ``render_cfg.oversample``, as the targets' renders do;
+        ``render_cfg.mode`` 'fixed_dt' raises ValueError before any work
+        or collective (the trainer sweeps planes; the JAX package's
+        trainer drops both fields without a word).
       mesh: optional :class:`~tpuvr_torch.dist.init.DataMesh`
         (``tpuvr_torch.dist.data_mesh()``): ray data parallelism over its
         ranks, each of which calls ``fit_grid`` with the same arguments.
@@ -758,6 +764,7 @@ def fit_grid(
       are the rank's z slab (the JAX package returns one global sharded
       array; the port materialises the whole grid on no rank).
     """
+    _check_cfg(render_cfg)
     zmesh = isinstance(mesh, GridMesh)
     if zmesh:
         _refuse_on_zmesh(grid_shape, mesh, lighting, grad_ring, bwd_chunks,
@@ -803,7 +810,7 @@ def fit_grid(
         k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band, plan)
         for k, (idxs, stacked, band, plan) in group_views(
             cams, grid_shape, rays_per_view=cfg.rays_per_view,
-            n_shards=n_shards).items()
+            n_shards=n_shards, oversample=render_cfg.oversample).items()
     }
     group_keys = sorted(groups)
     lit = lighting is not None and lighting.mode != "none"
@@ -1018,8 +1025,11 @@ def render_views_grouped(grid, cams, render_cfg: RenderConfig = RenderConfig(),
     sweep-layout grid per group, and per view the row-block warp (under
     ``TPUVR_WARP=rows``, where the group has a plan) or the 4-tap gather.
     ``render_cfg.ert_chunks`` > 1 cuts each view's slices into slabs, as
-    ``render_view`` does (the JAX package's grouped render ignores it).
+    ``render_view`` does, and ``render_cfg.oversample`` sets each view's
+    lattice (the JAX package's grouped render ignores both); a
+    ``render_cfg.mode`` other than 'plane_sweep' raises ValueError.
     Returns (N, H, W, 3)."""
+    _check_cfg(render_cfg)
     dev = resolve_device(device)
     with torch.no_grad():
         grid = torch.as_tensor(grid, device=dev)
@@ -1029,7 +1039,8 @@ def render_views_grouped(grid, cams, render_cfg: RenderConfig = RenderConfig(),
             grid = apply_lighting(grid, lighting, render_cfg.precision)
         out = [None] * len(cams)
         for key, (idxs, stacked, _, plan) in group_views(
-                cams, tuple(grid.shape)).items():
+                cams, tuple(grid.shape),
+                oversample=render_cfg.oversample).items():
             axis, reverse = key[0], key[1]
             grid_sc = grid_to_sweep_layout(grid, axis)
             enables = slice_enables(grid_sc, reverse,
