@@ -250,13 +250,29 @@ def interleaved_ms(fns, reps, rounds=5):
     return {name: float(np.median(t)) for name, t in times.items()}
 
 
-def device_ms(fn, reps, n_top=3):
-    """Device time per call from torch.profiler (the device-side kernel
-    and memcpy events over ``reps`` calls; the host ops that launched them
-    report the same time and are skipped), the ``n_top`` largest entries
-    by name, and the top-level ATen ops the host dispatched per call;
-    (None, [], ops) if the profiler sees no device activity."""
+def device_per_name(averages, reps):
+    """{kernel name: device ms per call} from a profile's ``key_averages()``
+    over ``reps`` calls: the device-side kernel and memcpy events. The host
+    ops that launched them report the same time and are skipped, and so
+    are user annotations (``record_function`` ranges such as the port's
+    ``tpuvr.*`` spans), whose device range covers the kernels inside it."""
     from torch.autograd import DeviceType
+
+    per = {}
+    for e in averages:
+        t = e.self_device_time_total
+        if (e.device_type != DeviceType.CPU and t > 0
+                and not getattr(e, "is_user_annotation", False)):
+            name = kernel_name(e.key)
+            per[name] = per.get(name, 0.0) + t / 1e3 / reps
+    return per
+
+
+def device_ms(fn, reps, n_top=3):
+    """Device time per call from torch.profiler (:func:`device_per_name`
+    over ``reps`` calls), the ``n_top`` largest entries by name, and the
+    top-level ATen ops the host dispatched per call; (None, [], ops) if the
+    profiler sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -268,12 +284,7 @@ def device_ms(fn, reps, n_top=3):
         torch.cuda.synchronize()
     ops = sum(1 for e in prof.events() if e.name.startswith("aten::") and (
         e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
-    per = {}
-    for e in prof.key_averages():
-        t = e.self_device_time_total
-        if e.device_type != DeviceType.CPU and t > 0:
-            name = kernel_name(e.key)
-            per[name] = per.get(name, 0.0) + t / 1e3 / reps
+    per = device_per_name(prof.key_averages(), reps)
     if not per:
         return None, [], ops / reps
     top = sorted(per.items(), key=lambda kv: -kv[1])[:n_top]
@@ -351,32 +362,31 @@ def reset_counts():
 
 
 def read_counts():
-    """Launches since reset_counts, by kernel row: the sweep kernels'
-    counts (kept by view count) split into one view ("sweep_fwd",
-    "sweep_bwd") and view batches ("sweep_fwd_views", "sweep_bwd_views"),
-    the tau sweep's and its adjoint's kernel launches ("tau_sweep",
-    "tau_adj": cluster launches plus the plane loop's plane launches) and
-    the directions they swept ("tau_sweep_dirs", "tau_adj_dirs"), with the
-    plane loop's share ("tau_sweep_plane_loop", "tau_adj_plane_loop"),
-    the row warp's ("warp_rows_fwd", "warp_rows_bwd") and the ring
-    backward's ("sweep_bwd_ring")."""
-    from tpuvr_torch.kernels import lighting, ring_bwd, sweep, sweep_bwd, warp
+    """Launches since reset_counts, by kernel row, read from
+    ``tpuvr_torch.utils.trace.launch_counts``: the sweep kernels' counts
+    split into one view ("sweep_fwd", "sweep_bwd") and view batches
+    ("sweep_fwd_views", "sweep_bwd_views"), the tau sweep's and its
+    adjoint's kernel launches ("tau_sweep", "tau_adj": cluster launches
+    plus the plane loop's plane launches) and the directions they swept
+    ("tau_sweep_dirs", "tau_adj_dirs"), with the plane loop's share
+    ("tau_sweep_plane_loop", "tau_adj_plane_loop"), the row warp's
+    ("warp_rows_fwd", "warp_rows_bwd") and the ring backward's
+    ("sweep_bwd_ring")."""
+    from tpuvr_torch.utils.trace import launch_counts
 
-    def batched(counts):
-        return sum(n for views, n in counts.items() if views > 1)
+    c = launch_counts()
 
-    return {"sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
-            "tau_sweep": sum(lighting.launches.values()),
-            "tau_adj": sum(lighting.adj_launches.values()),
-            "tau_sweep_dirs": sum(lighting.directions.values()),
-            "tau_adj_dirs": sum(lighting.adj_directions.values()),
-            "tau_sweep_plane_loop": lighting.launches[0],
-            "tau_adj_plane_loop": lighting.adj_launches[0],
-            "sweep_fwd_views": batched(sweep.launches),
-            "sweep_bwd_views": batched(sweep_bwd.launches),
-            "warp_rows_fwd": warp.launches["warp_rows_fwd"],
-            "warp_rows_bwd": warp.launches["warp_rows_bwd"],
-            "sweep_bwd_ring": ring_bwd.launches}
+    def total(prefix):
+        return sum(n for k, n in c.items() if k.startswith(prefix))
+
+    out = {k: c[k] for k in ("sweep_fwd", "sweep_bwd", "tau_sweep_dirs",
+                             "tau_adj_dirs", "sweep_fwd_views",
+                             "sweep_bwd_views", "warp_rows_fwd",
+                             "warp_rows_bwd", "sweep_bwd_ring")}
+    out.update(tau_sweep=total("tau_sweep_c"), tau_adj=total("tau_adj_c"),
+               tau_sweep_plane_loop=c["tau_sweep_c0"],
+               tau_adj_plane_loop=c["tau_adj_c0"])
+    return out
 
 
 def warp_mode(mode):

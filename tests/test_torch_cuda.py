@@ -1364,3 +1364,37 @@ def test_cli_render_on_the_card(card, tmp_path):
     assert on_card.shape == (128, 128, 3)
     np.testing.assert_allclose(on_card, plain, rtol=0, atol=1e-5)
     assert (tmp_path / "c1.png").stat().st_size > 0
+
+
+def test_device_ms_counts_no_span(card, tmp_path, monkeypatch):
+    """``chip_smoke.device_ms`` over a small lit fit: the spans that the
+    profiler turns on add no ``tpuvr.*`` entry, and the device total is
+    the one with the spans taken out, to the card's spread from profile
+    to profile (a span's device range counted would about double it)."""
+    import contextlib
+
+    from chip_smoke import device_ms
+    from tpuvr_torch.config import LightingConfig, TrainConfig
+    from tpuvr_torch.io.synth import orbit_cameras
+    from tpuvr_torch.utils import trace
+
+    gt = smoke_sphere(32, device=card)
+    cams = orbit_cameras(8, 32, res=32, elevation_deg=25.0)
+    rcfg = RenderConfig(early_stop_eps=0.0)
+    light = LightingConfig(mode="lightvolume", n_samples=3)
+    targets = fit.render_all_views(gt, cams, rcfg, device=card)
+    cfg = TrainConfig(lr=2e-2, steps=4, views_per_batch=2, ckpt_every=0,
+                      seed=3)
+
+    def run():
+        fit.fit_grid(targets, cams, gt.shape, cfg, rcfg,
+                     run_dir=str(tmp_path), lighting=light, device=card)
+
+    on, top_on, _ = device_ms(run, 3, n_top=1000)
+    for name in ("span", "request"):
+        monkeypatch.setattr(trace, name,
+                            lambda *a, **k: contextlib.nullcontext())
+    off, top_off, _ = device_ms(run, 3, n_top=1000)
+    assert not [k for k, _ in top_on if k.startswith("tpuvr.")]
+    assert {k for k, _ in top_on} == {k for k, _ in top_off}
+    assert on == pytest.approx(off, rel=0.25)

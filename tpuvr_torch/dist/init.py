@@ -52,9 +52,12 @@ import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
+from tpuvr_torch.utils import trace
+
 # Collectives issued so far, by kind ("all_reduce", "broadcast",
 # "all_to_all", "all_gather", "reduce_scatter", "exchange").
 collectives: collections.Counter[str] = collections.Counter()
+trace.counter(lambda: {f"collective_{k}": n for k, n in collectives.items()})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,6 @@ configs and cameras, the same on every rank.
 
 from __future__ import annotations
 
-import collections
 import hashlib
 import os
 
@@ -189,6 +188,17 @@ def fit_case(mesh, *, device, targets, cams, grid_shape, cfg, render_cfg,
     return hist["loss"], params
 
 
+def traced_case(mesh, *, device, fn, **kwargs):
+    """``fn(mesh, device=device, **kwargs)`` with spans on
+    (``tpuvr_torch.utils.trace.recording``): (its result, this rank's
+    snapshot)."""
+    from tpuvr_torch.utils import trace
+
+    with trace.recording():
+        out = fn(mesh, device=device, **kwargs)
+    return out, trace.snapshot()
+
+
 def resume_case(mesh, *, device, run_dirs, **fit_kw):
     """:func:`fit_case` with ``resume=True``, rank r reading and writing
     ``run_dirs[r]`` (ranks on hosts that share no directory)."""
@@ -208,26 +218,20 @@ def fog_params(grid_shape, device):
 
 
 def launch_counts():
-    """This process's kernel launches and counted collectives so far, as a
-    flat Counter: one-view sweeps ("sweep_fwd", "sweep_bwd"), view
-    batches ("sweep_fwd_views", "sweep_bwd_views"), the light bake's
-    launches by cluster size ("tau_sweep_c<size>", "tau_adj_c<size>"; size
-    0 counts the plane loop's planes) and the directions they swept
-    ("tau_sweep_dirs", "tau_adj_dirs"), and each collective
-    ("collective_<kind>"). Subtract two of them for what ran between."""
-    from tpuvr_torch.dist import init
-    from tpuvr_torch.kernels import lighting, sweep, sweep_bwd
+    """This process's kernel launches and counted collectives so far
+    (:func:`tpuvr_torch.utils.trace.launch_counts`) without the row warp's
+    and the ring's, as a flat Counter: one-view sweeps ("sweep_fwd",
+    "sweep_bwd"), view batches ("sweep_fwd_views", "sweep_bwd_views"), the
+    light bake's launches by cluster size ("tau_sweep_c<size>",
+    "tau_adj_c<size>"; size 0 counts the plane loop's planes) and the
+    directions they swept ("tau_sweep_dirs", "tau_adj_dirs"), and each
+    collective ("collective_<kind>"). Subtract two of them for what ran
+    between."""
+    from tpuvr_torch.utils import trace
 
-    out = collections.Counter({
-        "sweep_fwd": sweep.launches[1], "sweep_bwd": sweep_bwd.launches[1],
-        "sweep_fwd_views": sum(n for v, n in sweep.launches.items() if v > 1),
-        "sweep_bwd_views": sum(n for v, n in sweep_bwd.launches.items()
-                               if v > 1),
-        "tau_sweep_dirs": sum(lighting.directions.values()),
-        "tau_adj_dirs": sum(lighting.adj_directions.values())})
-    out.update({f"tau_sweep_c{k}": n for k, n in lighting.launches.items()})
-    out.update({f"tau_adj_c{k}": n for k, n in lighting.adj_launches.items()})
-    out.update({f"collective_{k}": n for k, n in init.collectives.items()})
+    out = trace.launch_counts()
+    for k in ("warp_rows_fwd", "warp_rows_bwd", "sweep_bwd_ring"):
+        del out[k]
     return out
 
 

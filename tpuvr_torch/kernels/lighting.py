@@ -29,6 +29,7 @@ from tpuvr_torch.kernels.sweep_torch import (
     _interp_matrices,
     resample,
 )
+from tpuvr_torch.utils import trace
 
 # The cluster route (csrc/tau_cluster.cuh): one cluster of n CTAs a
 # direction, CTA r keeping rows [r R, r R + R) of the carried plane, R =
@@ -52,6 +53,11 @@ launches: collections.Counter[int] = collections.Counter()
 directions: collections.Counter[int] = collections.Counter()
 adj_launches: collections.Counter[int] = collections.Counter()
 adj_directions: collections.Counter[int] = collections.Counter()
+trace.counter(lambda: {
+    "tau_sweep_dirs": sum(directions.values()),
+    "tau_adj_dirs": sum(adj_directions.values()),
+    **{f"tau_sweep_c{k}": n for k, n in launches.items()},
+    **{f"tau_adj_c{k}": n for k, n in adj_launches.items()}})
 
 # srcs, outs, dims, coefs, count, the route (in: asked for, out: taken),
 # precision.

@@ -39,11 +39,13 @@ from tpuvr_torch.kernels.sweep_torch import (
     sweep_bwd_torch,
     sweep_bwd_views_torch,
 )
+from tpuvr_torch.utils import trace
 
 # Ring backward calls that launched K6 on the card (each launches K6
 # ``ring_chunks`` times, counted by the K6 wrapper); a run reads it to show
 # that it went through the ring.
 launches = 0
+trace.counter(lambda: {"sweep_bwd_ring": launches})
 
 
 def check_ring_size(ring_size: int, mesh) -> None:

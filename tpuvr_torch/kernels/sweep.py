@@ -20,10 +20,14 @@ from tpuvr_torch.kernels.sweep_torch import (
     sweep_fwd_torch,
     sweep_fwd_views_torch,
 )
+from tpuvr_torch.utils import trace
 
 # Kernel launches so far, by the view count of the launch; a run reads it to
 # show that it went through the kernel.
 launches: collections.Counter[int] = collections.Counter()
+trace.counter(lambda: {
+    "sweep_fwd": launches[1],
+    "sweep_fwd_views": sum(n for v, n in launches.items() if v > 1)})
 
 _MAX_SLICES = 2048  # (5, S) f32 per-slice scalars in shared memory
 _MAX_VIEWS = 65535  # the kernels put the view on gridDim.z

@@ -29,11 +29,15 @@ from tpuvr_torch.kernels.sweep_torch import (
     sweep_bwd_views_torch,
     sweep_dbias,
 )
+from tpuvr_torch.utils import trace
 
 # Kernel launches so far (one per call; each call issues two CUDA launches
 # per slab of slices), by the view count of the call; a run reads it to
 # show that it went through the kernel.
 launches: collections.Counter[int] = collections.Counter()
+trace.counter(lambda: {
+    "sweep_bwd": launches[1],
+    "sweep_bwd_views": sum(n for v, n in launches.items() if v > 1)})
 
 # Cotangent samples held per slab: slab * V * U float4 of at most this many
 # bytes (16 slices at the c4 minibatch). Measured on the H100: a shorter

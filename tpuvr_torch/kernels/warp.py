@@ -18,11 +18,14 @@ from tpuvr_torch.kernels.warp_torch import (
     warp_rows_bwd_torch,
     warp_rows_fwd_torch,
 )
+from tpuvr_torch.utils import trace
 
 # Kernel launches so far, by kernel ("warp_rows_fwd", "warp_rows_bwd"; one
 # per call, though the backward call issues two CUDA launches); a run reads
 # it to show that it went through the kernels.
 launches: collections.Counter[str] = collections.Counter()
+trace.counter(lambda: {k: launches[k]
+                       for k in ("warp_rows_fwd", "warp_rows_bwd")})
 
 # The backward's tile stage (csrc/warp_rows.cu) keeps a (C, f_v, 32)
 # window slab, a 1024-pixel batch and its bins in shared memory, puts the

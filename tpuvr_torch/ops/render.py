@@ -6,7 +6,8 @@ intermediate image to pixels. For a frame loop over one grid, call
 :func:`prepare_grid` once and :func:`render_prepared` per frame.
 
 Every entry point takes ``device``: ``None`` is the card, and only
-``device="cpu"`` runs the plain PyTorch versions.
+``device="cpu"`` runs the plain PyTorch versions. A frame's phases and
+``prepare_grid``'s are spans of ``tpuvr_torch.utils.trace``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from tpuvr_torch.ops.geometry import (
 from tpuvr_torch.ops.vjp import chunked_sweep, resolve_impl, sweep_op
 from tpuvr_torch.ref.camera import camera_rays, dominant_axis
 from tpuvr_torch.ref.march import GRID_PERM, render_fixed_dt
+from tpuvr_torch.utils import trace
 
 
 def grid_to_sweep_layout(grid, axis: int):
@@ -88,12 +90,14 @@ def prepare_grid(
     if lighting is not None and lighting.mode != "none":
         from tpuvr_torch.ops.lighting import apply_lighting
 
-        grid = apply_lighting(grid, lighting, precision)
+        with trace.span("tpuvr.prepare.bake"):
+            grid = apply_lighting(grid, lighting, precision)
     prep = {}
-    for axis in axes:
-        grid_sc = grid_to_sweep_layout(grid, axis)
-        slice_max = torch.amax(grid_sc[:, 0].detach(), dim=(1, 2))
-        prep[int(axis)] = (grid_sc, slice_max)
+    with trace.span("tpuvr.prepare.layout"):
+        for axis in axes:
+            grid_sc = grid_to_sweep_layout(grid, axis)
+            slice_max = torch.amax(grid_sc[:, 0].detach(), dim=(1, 2))
+            prep[int(axis)] = (grid_sc, slice_max)
     return prep
 
 
@@ -160,14 +164,20 @@ def render_prepared(
     Returns:
       (rgb (res_y, res_x, 3), transmittance (res_y, res_x)).
     """
-    plan, uv, args = sweep_inputs(prep, cam, cfg, device)
-    op = sweep_op(plan.reverse, cfg.sigma_scale, cfg.early_stop_eps,
-                  resolve_impl("auto", args[0]), cfg.precision)
-    rgb, trans = chunked_sweep(op, *args, max_rows=cfg.max_rows_per_call,
-                               ert_chunks=cfg.ert_chunks,
-                               reverse=plan.reverse, eps=cfg.early_stop_eps)
-    inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
-    img = warp_to_pixels(inter, plan, uv)
+    with trace.request("render.frame"):
+        with trace.span("tpuvr.render.plan"):
+            plan, uv, args = sweep_inputs(prep, cam, cfg, device)
+        with trace.span("tpuvr.render.sweep"):
+            op = sweep_op(plan.reverse, cfg.sigma_scale, cfg.early_stop_eps,
+                          resolve_impl("auto", args[0]), cfg.precision)
+            rgb, trans = chunked_sweep(op, *args,
+                                       max_rows=cfg.max_rows_per_call,
+                                       ert_chunks=cfg.ert_chunks,
+                                       reverse=plan.reverse,
+                                       eps=cfg.early_stop_eps)
+        with trace.span("tpuvr.render.warp"):
+            inter = torch.cat([rgb, trans[None]], dim=0).permute(1, 2, 0)
+            img = warp_to_pixels(inter, plan, uv)
     return img[..., :3], img[..., 3]
 
 

@@ -27,7 +27,9 @@ views, on one device or, with a mesh of ranks (one process per card,
 The minibatch draws follow the JAX package's ``fit_grid`` exactly (the
 same groups, numpy generator and calls), so the two trainers see the same
 views. Checkpoints (``tpuvr_torch.train.ckpt``) and metrics JSONL go to
-the run directory.
+the run directory. The host's phases are flat spans of
+``tpuvr_torch.utils.trace`` (``tpuvr.fit.*``), each step a request
+record.
 
 On a mesh (``fit_grid(mesh=data_mesh())``, the JAX package's ``'data'``
 mesh) every rank holds the whole grid and the same training state, sweeps
@@ -98,6 +100,7 @@ from tpuvr_torch.ops.warp import (
 from tpuvr_torch.ref.camera import dominant_axis
 from tpuvr_torch.ref.march import GRID_PERM
 from tpuvr_torch.train.ckpt import Checkpointer
+from tpuvr_torch.utils import trace
 from tpuvr_torch.utils.metrics import MetricsLogger, psnr
 
 log = logging.getLogger("tpuvr_torch")
@@ -352,14 +355,25 @@ def make_train_step(
                          "density and no lighting: the bake needs the "
                          "canonical grid")
 
-    def grid_and_enables(params):
+    def forward(params, sweep):
+        """``sweep(grid_sc, enables)`` of the grid the parameters give, in
+        this group's sweep layout, and its slice enables: one forward span,
+        or two around the lit step's bake."""
         if kernel_softplus:
-            return params, params.new_ones(params.shape[0])
-        grid = params_to_grid(params, density_softplus)
-        if lit:
-            from tpuvr_torch.ops.lighting import apply_lighting
+            with trace.span("tpuvr.fit.forward"):
+                return sweep(params, params.new_ones(params.shape[0]))
+        with trace.span("tpuvr.fit.forward"):
+            grid = params_to_grid(params, density_softplus)
+            if not lit:
+                return sweep(*sweep_grid(grid))
+        from tpuvr_torch.ops.lighting import apply_lighting
 
+        with trace.span("tpuvr.fit.bake"):
             grid = apply_lighting(grid, lighting, render_cfg.precision)
+        with trace.span("tpuvr.fit.forward"):
+            return sweep(*sweep_grid(grid))
+
+    def sweep_grid(grid):
         grid_sc = grid_to_sweep_layout(grid, axis)
         return grid_sc, slice_enables(grid_sc, reverse,
                                       render_cfg.use_occupancy)
@@ -440,50 +454,58 @@ def make_train_step(
 
     def mesh_loss_and_grads(op, row_op, p, geom, targets, r0s, r_lo, v_l):
         with torch.enable_grad():
-            grid_sc, enables = grid_and_enables(p)
-            tiles = tiles_of_rows(op, grid_sc, enables, geom, r_lo, v_l)
-        full = gather_tiles(tiles.detach(), mesh, 2).requires_grad_(True)
-        with torch.enable_grad():
-            inters = [x if row_plan is not None else x.permute(1, 2, 0)
-                      for x in full.unbind(0)]
-            loss = images_loss(inters, geom, targets, r0s, row_op)
+            tiles = forward(p, lambda grid_sc, enables: tiles_of_rows(
+                op, grid_sc, enables, geom, r_lo, v_l))
+        with trace.span("tpuvr.fit.loss"):
+            full = gather_tiles(tiles.detach(), mesh, 2).requires_grad_(True)
+            with torch.enable_grad():
+                inters = [x if row_plan is not None else x.permute(1, 2, 0)
+                          for x in full.unbind(0)]
+                loss = images_loss(inters, geom, targets, r0s, row_op)
+        with trace.span("tpuvr.fit.backward"), torch.enable_grad():
             (d_full,) = torch.autograd.grad(loss, full)
             (grads,) = torch.autograd.grad(
                 tiles, p, d_full.narrow(2, r_lo, tiles.shape[2]))
         if not (chunked or ringed):
-            bucketed_all_reduce(grads, mesh, grad_buckets)
+            with trace.span("tpuvr.fit.reduce"):
+                bucketed_all_reduce(grads, mesh, grad_buckets)
         return loss, grads
 
     def step(params, opt_state, geom_all, targets_all, pick, r0s):
-        pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
-                                 device=params.device)
-        geom = {k: v[pick_t] for k, v in geom_all.items()}
-        targets = targets_all[pick_t]
-        if rows is not None:
-            geom = _slice_band(geom, r0s, rows)
-        r_lo, v_l = (0, None) if mesh is None else row_tile(geom)
-        op = sweep_op(reverse, render_cfg.sigma_scale,
-                      render_cfg.early_stop_eps, resolve_impl(impl, params),
-                      render_cfg.precision, softplus=kernel_softplus,
-                      views=n_views if view_batch else 1,
-                      bwd_chunks=bwd_chunks if chunked else 1,
-                      mesh=mesh if chunked else None,
-                      ring=((mesh, mesh.world, max(bwd_chunks, 1))
-                            if ringed else None), row0=r_lo)
-        row_op = (None if row_plan is None else
-                  row_warp_op(row_plan.f_v, resolve_impl(impl, params)))
-        p = params.detach().requires_grad_(True)
+        with trace.span("tpuvr.fit.gather"):
+            pick_t = torch.as_tensor(np.asarray(pick), dtype=torch.long,
+                                     device=params.device)
+            geom = {k: v[pick_t] for k, v in geom_all.items()}
+            targets = targets_all[pick_t]
+            if rows is not None:
+                geom = _slice_band(geom, r0s, rows)
+            r_lo, v_l = (0, None) if mesh is None else row_tile(geom)
+            op = sweep_op(reverse, render_cfg.sigma_scale,
+                          render_cfg.early_stop_eps,
+                          resolve_impl(impl, params), render_cfg.precision,
+                          softplus=kernel_softplus,
+                          views=n_views if view_batch else 1,
+                          bwd_chunks=bwd_chunks if chunked else 1,
+                          mesh=mesh if chunked else None,
+                          ring=((mesh, mesh.world, max(bwd_chunks, 1))
+                                if ringed else None), row0=r_lo)
+            row_op = (None if row_plan is None else
+                      row_warp_op(row_plan.f_v, resolve_impl(impl, params)))
+            p = params.detach().requires_grad_(True)
         if mesh is not None:
             loss, grads = mesh_loss_and_grads(op, row_op, p, geom, targets,
                                               r0s, r_lo, v_l)
         else:
             with torch.enable_grad():
-                grid_sc, enables = grid_and_enables(p)
-                loss = images_loss(view_inters(op, grid_sc, enables, geom),
-                                   geom, targets, r0s, row_op)
-                (grads,) = torch.autograd.grad(loss, p)
-        updates, opt_state = opt.update(grads, opt_state)
-        return params + updates, opt_state, loss.detach()
+                inters = forward(p, lambda grid_sc, enables: view_inters(
+                    op, grid_sc, enables, geom))
+                with trace.span("tpuvr.fit.loss"):
+                    loss = images_loss(inters, geom, targets, r0s, row_op)
+                with trace.span("tpuvr.fit.backward"):
+                    (grads,) = torch.autograd.grad(loss, p)
+        with trace.span("tpuvr.fit.adam"):
+            updates, opt_state = opt.update(grads, opt_state)
+            return params + updates, opt_state, loss.detach()
 
     return step
 
@@ -773,94 +795,101 @@ def fit_grid(
     elif mesh is None and (grad_ring or bwd_chunks > 1):
         raise ValueError("grad_ring and bwd_chunks > 1 reduce the gradient "
                          "over a mesh; pass mesh=")
-    dev = resolve_device(device)
-    run_dir = run_dir or cfg.ckpt_dir
-    main_rank = mesh is None or mesh.rank == 0
-    metrics = MetricsLogger(run_dir if main_rank else None)
-    opt = opt if opt is not None else Adam(cfg.lr)
-    # On a z mesh: this rank's slab of Z, and its own checkpoint directory.
-    slab_shape, z_rows = tuple(grid_shape), slice(None)
-    ckpt_dir, writer = f"{run_dir}/ckpt", main_rank
-    if zmesh:
-        sz = grid_shape[0] // mesh.shape["z"]
-        slab_shape = (sz, *grid_shape[1:])
-        z_rows = slice(mesh.z.rank * sz, (mesh.z.rank + 1) * sz)
-        ckpt_dir = f"{ckpt_dir}/z{mesh.z.rank}"
-        writer = mesh.data.rank == 0
-    if params_init is not None:
-        params = torch.as_tensor(params_init, dtype=torch.float32)[
-            z_rows].to(dev, copy=True)
-    else:
-        params = init_params(slab_shape, cfg.density_softplus, device=dev)
-    opt_state = opt.init(params)
-    start_step = 0
-
-    ckpt = Checkpointer(ckpt_dir) if cfg.ckpt_every else None
-    if resume and ckpt is not None and ckpt.latest_step() is not None:
-        step_no, state = ckpt.restore(
-            {"params": params, "opt_state": opt_state})
-        params, opt_state = state["params"], state["opt_state"]
-        start_step = step_no + 1
-        log.info("resumed from checkpoint at step %d", step_no)
-
-    # Geometry is built on the host, then each group's stacked tensors
-    # move to the device once.
-    n_shards = 1 if mesh is None else mesh.shape["data"]
-    groups = {
-        k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band, plan)
-        for k, (idxs, stacked, band, plan) in group_views(
-            cams, grid_shape, rays_per_view=cfg.rays_per_view,
-            n_shards=n_shards, oversample=render_cfg.oversample).items()
-    }
-    group_keys = sorted(groups)
-    lit = lighting is not None and lighting.mode != "none"
-    K = max(int(cfg.steps_per_call), 1)
-    if fused is None:
-        fused = (cfg.density_softplus and not lit
-                 and os.environ.get("TPUVR_FUSED_SOFTPLUS", "1") != "0"
-                 and (K > 1 or len(group_keys) == 1))
-    steps_fns, rows_by_key = {}, {}
-    for key in group_keys:
-        idxs, stacked, _, plan = groups[key]
-        n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
-        rows = band_rows(cfg.rays_per_view, n_v, n_u, n_shards)
-        rows_by_key[key] = (rows, n_v)
-        k_views = min(cfg.views_per_batch, len(idxs))
+    with trace.span("tpuvr.fit.plan"):
+        dev = resolve_device(device)
+        run_dir = run_dir or cfg.ckpt_dir
+        main_rank = mesh is None or mesh.rank == 0
+        metrics = MetricsLogger(run_dir if main_rank else None)
+        opt = opt if opt is not None else Adam(cfg.lr)
+        # On a z mesh: this rank's slab of Z, and its own checkpoint
+        # directory.
+        slab_shape, z_rows = tuple(grid_shape), slice(None)
+        ckpt_dir, writer = f"{run_dir}/ckpt", main_rank
         if zmesh:
-            _check_zrows(rows or n_v, mesh)
-            steps_fns[key] = make_train_step_zsharded(
-                key, k_views, opt, render_cfg, cfg.density_softplus, impl,
-                mesh, rows=rows, grad_buckets=grad_buckets)
-            continue
-        if (rows or n_v) % n_shards:
-            raise ValueError(f"group {key}: intermediate rows {rows or n_v} "
-                             f"not divisible by mesh size {n_shards}")
-        steps_fns[key] = make_train_step(
-            key, k_views, opt, render_cfg, cfg.density_softplus, impl,
-            rows=rows, kernel_softplus=fused, lighting=lighting,
-            view_batch=view_batch_eligible(k_views), warp_tiling=plan,
-            mesh=mesh, grad_buckets=grad_buckets, bwd_chunks=bwd_chunks,
-            grad_ring=grad_ring,
-        )
-    targets = _as_tensor(targets)
-    targets_by_key = {
-        k: targets[torch.as_tensor(groups[k][0], device=targets.device)].to(
-            dev) for k in group_keys
-    }
+            sz = grid_shape[0] // mesh.shape["z"]
+            slab_shape = (sz, *grid_shape[1:])
+            z_rows = slice(mesh.z.rank * sz, (mesh.z.rank + 1) * sz)
+            ckpt_dir = f"{ckpt_dir}/z{mesh.z.rank}"
+            writer = mesh.data.rank == 0
+        if params_init is not None:
+            params = torch.as_tensor(params_init, dtype=torch.float32)[
+                z_rows].to(dev, copy=True)
+        else:
+            params = init_params(slab_shape, cfg.density_softplus, device=dev)
+        opt_state = opt.init(params)
+        start_step = 0
 
-    if mesh is not None:  # after every check that can refuse the run
-        params, opt_state, start_step = _start_from_rank0(
-            params, opt_state, start_step, opt,
-            *((mesh.flat, mesh.data) if zmesh else (mesh,)))
-    rng = np.random.default_rng(cfg.seed + start_step)
+        ckpt = Checkpointer(ckpt_dir) if cfg.ckpt_every else None
+        if resume and ckpt is not None and ckpt.latest_step() is not None:
+            step_no, state = ckpt.restore(
+                {"params": params, "opt_state": opt_state})
+            params, opt_state = state["params"], state["opt_state"]
+            start_step = step_no + 1
+            log.info("resumed from checkpoint at step %d", step_no)
+
+        # Geometry is built on the host, then each group's stacked tensors
+        # move to the device once.
+        n_shards = 1 if mesh is None else mesh.shape["data"]
+        groups = {
+            k: (idxs, {n: t.to(dev) for n, t in stacked.items()}, band,
+                plan)
+            for k, (idxs, stacked, band, plan) in group_views(
+                cams, grid_shape, rays_per_view=cfg.rays_per_view,
+                n_shards=n_shards, oversample=render_cfg.oversample).items()
+        }
+        group_keys = sorted(groups)
+        lit = lighting is not None and lighting.mode != "none"
+        K = max(int(cfg.steps_per_call), 1)
+        if fused is None:
+            fused = (cfg.density_softplus and not lit
+                     and os.environ.get("TPUVR_FUSED_SOFTPLUS", "1") != "0"
+                     and (K > 1 or len(group_keys) == 1))
+        steps_fns, rows_by_key = {}, {}
+        for key in group_keys:
+            idxs, stacked, _, plan = groups[key]
+            n_v, n_u = stacked["dt"].shape[1], stacked["dt"].shape[2]
+            rows = band_rows(cfg.rays_per_view, n_v, n_u, n_shards)
+            rows_by_key[key] = (rows, n_v)
+            k_views = min(cfg.views_per_batch, len(idxs))
+            if zmesh:
+                _check_zrows(rows or n_v, mesh)
+                steps_fns[key] = make_train_step_zsharded(
+                    key, k_views, opt, render_cfg, cfg.density_softplus,
+                    impl, mesh, rows=rows, grad_buckets=grad_buckets)
+                continue
+            if (rows or n_v) % n_shards:
+                raise ValueError(f"group {key}: intermediate rows "
+                                 f"{rows or n_v} not divisible by mesh size "
+                                 f"{n_shards}")
+            steps_fns[key] = make_train_step(
+                key, k_views, opt, render_cfg, cfg.density_softplus, impl,
+                rows=rows, kernel_softplus=fused, lighting=lighting,
+                view_batch=view_batch_eligible(k_views), warp_tiling=plan,
+                mesh=mesh, grad_buckets=grad_buckets, bwd_chunks=bwd_chunks,
+                grad_ring=grad_ring,
+            )
+        targets = _as_tensor(targets)
+        targets_by_key = {
+            k: targets[torch.as_tensor(groups[k][0],
+                                       device=targets.device)].to(dev)
+            for k in group_keys
+        }
+
+        if mesh is not None:  # after every check that can refuse the run
+            params, opt_state, start_step = _start_from_rank0(
+                params, opt_state, start_step, opt,
+                *((mesh.flat, mesh.data) if zmesh else (mesh,)))
+        rng = np.random.default_rng(cfg.seed + start_step)
     history = {"loss": [], "step_ms": []}
     pending = None  # (step numbers, key, device losses) awaiting readback
 
     def drain(rec):
+        """Read a block's losses back and write their metrics lines."""
         step_is, key_i, losses = rec
-        for step_i, loss in zip(step_is, losses):
-            history["loss"].append(float(loss))
-            metrics.write(step_i, loss=float(loss), group=str(key_i))
+        with trace.span("tpuvr.fit.drain", ("fit.step", step_is[-1])):
+            for step_i, loss in zip(step_is, losses):
+                history["loss"].append(float(loss))
+                metrics.write(step_i, loss=float(loss), group=str(key_i))
 
     def draw(key, size=None):
         """View picks and row offsets, as the JAX package draws them."""
@@ -895,25 +924,29 @@ def fit_grid(
     blk = start_step // K
     cur_layout = None  # fused mode: the axis whose layout the state is in
     while step_no < cfg.steps:
-        if K == 1:
-            key = group_keys[step_no % len(group_keys)]
-            n_done = 1
-            picks, r0s_all = draw(key)
-            picks, r0s_all = picks[None], r0s_all[None]
-        else:
-            key = group_keys[blk % len(group_keys)]
-            n_done = min(K, cfg.steps - step_no)
-            picks, r0s_all = draw(key, size=n_done)
-            blk += 1
+        req = ("fit.step", step_no)
+        with trace.span("tpuvr.fit.draw", req):
+            if K == 1:
+                key = group_keys[step_no % len(group_keys)]
+                n_done = 1
+                picks, r0s_all = draw(key)
+                picks, r0s_all = picks[None], r0s_all[None]
+            else:
+                key = group_keys[blk % len(group_keys)]
+                n_done = min(K, cfg.steps - step_no)
+                picks, r0s_all = draw(key, size=n_done)
+                blk += 1
         if fused and cur_layout != key[0]:
-            params, opt_state = _relayout(params, opt_state, cur_layout,
-                                          key[0])
+            with trace.span("tpuvr.fit.relayout", req):
+                params, opt_state = _relayout(params, opt_state, cur_layout,
+                                              key[0])
             cur_layout = key[0]
         losses = []
-        for pick, r0s in zip(picks, r0s_all):
-            params, opt_state, loss = steps_fns[key](
-                params, opt_state, groups[key][1], targets_by_key[key],
-                pick, r0s)
+        for j, (pick, r0s) in enumerate(zip(picks, r0s_all)):
+            with trace.request("fit.step", step_no + j):
+                params, opt_state, loss = steps_fns[key](
+                    params, opt_state, groups[key][1], targets_by_key[key],
+                    pick, r0s)
             losses.append(loss)
             marks.append(mark())
         # Read the previous block's losses back only now, so the host does
@@ -925,10 +958,11 @@ def fit_grid(
         if ckpt is not None and writer and (
                 next_step % cfg.ckpt_every < n_done
                 or next_step >= cfg.steps):
-            p_c, o_c = (_relayout(params, opt_state, cur_layout, None)
-                        if fused else (params, opt_state))
-            ckpt.save(next_step - 1, {"params": p_c, "opt_state": o_c},
-                      cast_bf16=cfg.ckpt_bf16)
+            with trace.span("tpuvr.fit.ckpt", ("fit.step", next_step - 1)):
+                p_c, o_c = (_relayout(params, opt_state, cur_layout, None)
+                            if fused else (params, opt_state))
+                ckpt.save(next_step - 1, {"params": p_c, "opt_state": o_c},
+                          cast_bf16=cfg.ckpt_bf16)
         step_no = next_step
     if pending is not None:
         drain(pending)
@@ -939,7 +973,8 @@ def fit_grid(
     else:
         history["step_ms"] = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     if fused and cur_layout is not None:
-        params, opt_state = _relayout(params, opt_state, cur_layout, None)
+        with trace.span("tpuvr.fit.relayout", ("fit.step", step_no - 1)):
+            params, opt_state = _relayout(params, opt_state, cur_layout, None)
     return params_to_grid(params, cfg.density_softplus), params, history
 
 
