@@ -123,8 +123,8 @@ same for the light bake's tau sweep and its adjoint (K2, K4 at c3's 16
 directions, c3's prepare_grid, the lit fit's first-step gradient), also in
 a tree that has only the one-direction tau wrappers. ``--phase bench``
 runs the build (K1, K3) and phase 7 alone, ``--phase c5`` the build (K1,
-K2, K3) and phase 8 alone (on one card, or with four cards its mesh over
-NCCL), ``--phase shell`` the build (K1-K4) and phase 9 alone.
+K2, K3, K9/K10) and phase 8 alone (on one card, or with four cards its mesh
+over NCCL), ``--phase shell`` the build (K1-K4, K9/K10) and phase 9 alone.
 """
 
 from __future__ import annotations
@@ -349,8 +349,16 @@ def per_ray_sweep_fwd(grid_sc, coeffs, enables, dt_map, *, reverse=False,
 
 def reset_counts():
     from tpuvr_torch.dist import init
-    from tpuvr_torch.kernels import lighting, ring_bwd, sweep, sweep_bwd, warp
+    from tpuvr_torch.kernels import (
+        light_apply,
+        lighting,
+        ring_bwd,
+        sweep,
+        sweep_bwd,
+        warp,
+    )
 
+    light_apply.launches.clear()
     sweep.launches.clear()
     sweep_bwd.launches.clear()
     warp.launches.clear()
@@ -370,8 +378,10 @@ def read_counts():
     plus the plane loop's plane launches) and the directions they swept
     ("tau_sweep_dirs", "tau_adj_dirs"), with the plane loop's share
     ("tau_sweep_plane_loop", "tau_adj_plane_loop"), the row warp's
-    ("warp_rows_fwd", "warp_rows_bwd") and the ring backward's
-    ("sweep_bwd_ring")."""
+    ("warp_rows_fwd", "warp_rows_bwd"), the ring backward's
+    ("sweep_bwd_ring"), and the lit grid's assembly: K9 and K10 launches
+    ("light_apply_fwd", "light_apply_bwd") and the calls that took the
+    ATen passes instead ("light_apply_fallback")."""
     from tpuvr_torch.utils.trace import launch_counts
 
     c = launch_counts()
@@ -382,7 +392,9 @@ def read_counts():
     out = {k: c[k] for k in ("sweep_fwd", "sweep_bwd", "tau_sweep_dirs",
                              "tau_adj_dirs", "sweep_fwd_views",
                              "sweep_bwd_views", "warp_rows_fwd",
-                             "warp_rows_bwd", "sweep_bwd_ring")}
+                             "warp_rows_bwd", "sweep_bwd_ring",
+                             "light_apply_fwd", "light_apply_bwd",
+                             "light_apply_fallback")}
     out.update(tau_sweep=total("tau_sweep_c"), tau_adj=total("tau_adj_c"),
                tau_sweep_plane_loop=c["tau_sweep_c0"],
                tau_adj_plane_loop=c["tau_adj_c0"])
@@ -3132,24 +3144,143 @@ def c5_setup():
 @contextlib.contextmanager
 def plain_versions():
     """Route the render entry points' sweep (``render_prepared``'s op) and
-    the light bake (``ops.lighting``'s batched tau sweeps) to their plain
-    PyTorch versions for CUDA tensors too: the reference a frame or a step
-    through the kernels is held against. The train step takes
-    ``impl="torch"`` itself."""
+    the light bake (``ops.lighting``'s batched tau sweeps and the lit
+    grid's assembly) to their plain PyTorch versions for CUDA tensors
+    too: the reference a frame or a step through the kernels is held
+    against. The train step takes ``impl="torch"`` itself."""
+    from tpuvr_torch.kernels import light_apply as klight_apply
     from tpuvr_torch.kernels import lighting as klight
     from tpuvr_torch.ops import lighting as olight
     from tpuvr_torch.ops import render
 
     saved = (render.resolve_impl, olight.tau_sweep_dirs,
-             olight.tau_sweep_adj_dirs)
+             olight.tau_sweep_adj_dirs, olight.light_apply)
     render.resolve_impl = lambda impl, t: "torch"
     olight.tau_sweep_dirs = klight.tau_sweep_dirs_torch
     olight.tau_sweep_adj_dirs = klight.tau_sweep_adj_dirs_torch
+    olight.light_apply = klight_apply.light_apply_torch
     try:
         yield
     finally:
         (render.resolve_impl, olight.tau_sweep_dirs,
-         olight.tau_sweep_adj_dirs) = saved
+         olight.tau_sweep_adj_dirs, olight.light_apply) = saved
+
+
+def f32_ulps(a, b):
+    """Largest distance in f32 units in the last place between two float32
+    tensors (signed zeros equal): 0 for the same bits."""
+    def key(t):
+        i = (t + 0.0).contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+def light_apply_c5(grid, lcfg):
+    """K9 and K10 (``kernels.light_apply``) at c5's size, the 512^3 grid
+    and its 16 directions, against the ATen passes of their twin
+    (``light_apply_torch``): the lit grid and L, and the grid gradient for
+    a contiguous cotangent and for one in each sweep axis's layout, as ulp
+    distances (0: the same bits, the kernels' contract); CUDA-event times
+    of both, and the kernels' byte bounds. Returns the numbers."""
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ref.march import GRID_PERM
+
+    table = olight.direction_table(lcfg)
+    axes = [row[0] for row in table]
+    scale = lcfg.sky_intensity / lcfg.n_samples
+    vox = grid[..., 0].numel()
+    out = dict(shape=f"{tuple(grid.shape)} smoke_sphere, {len(table)} "
+                     f"directions over sweep axes {sorted(set(axes))}, "
+                     "highest",
+               fwd_bytes_ms=(len(table) + 9) * 4 * vox / HBM_BYTES_PER_S
+               * 1e3,
+               fwd_no_l_bytes_ms=(len(table) + 8) * 4 * vox
+               / HBM_BYTES_PER_S * 1e3,
+               bwd_bytes_ms=9 * 4 * vox / HBM_BYTES_PER_S * 1e3)
+    with torch.no_grad():
+        taus = olight._TauDirs.apply(grid[..., 0], table, "highest")
+        lit, ell = kla._forward(grid, taus, axes, scale, True)
+        ref_ell = kla.light_value_torch(taus, axes, scale)
+        out["fwd_ulps"] = max(f32_ulps(ell, ref_ell), f32_ulps(
+            lit, kla.lit_grid_torch(grid, ref_ell)))
+        out["l_range"] = [float(ell.min()), float(ell.max())]
+        del lit, ref_ell
+        out["fwd_ms"] = cuda_ms(
+            lambda: kla._forward(grid, taus, axes, scale, True), 10)
+        out["fwd_no_l_ms"] = cuda_ms(
+            lambda: kla._forward(grid, taus, axes, scale, False), 10)
+        out["fwd_plain_ms"] = cuda_ms(
+            lambda: kla.light_apply_torch(grid, taus, axes, scale), 2)
+    del taus
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=grid.device).manual_seed(9)
+    out.update(bwd_ulps=0, bwd_ms_by_layout={}, bwd_plain_ms_by_layout={})
+    for layout in ("contiguous", 0, 1, 2):
+        if layout == "contiguous":
+            g = torch.randn(grid.shape, generator=gen, device=grid.device)
+        else:  # a view of a gradient in the sweep layout (S, 4, Ny, Nx)
+            p = [grid.shape[i] for i in GRID_PERM[layout][:3]]
+            g = torch.randn((p[0], 4, p[1], p[2]), generator=gen,
+                            device=grid.device).permute(0, 2, 3, 1).permute(
+                tuple(int(i) for i in np.argsort(GRID_PERM[layout])))
+        leaf = grid.detach().requires_grad_(True)
+
+        def plain():
+            return torch.autograd.grad(kla.lit_grid_torch(leaf, ell), leaf,
+                                       g)[0]
+
+        out["bwd_ulps"] = max(out["bwd_ulps"],
+                              f32_ulps(kla._backward(g, ell), plain()))
+        out["bwd_ms_by_layout"][str(layout)] = cuda_ms(
+            lambda: kla._backward(g, ell), 10)
+        out["bwd_plain_ms_by_layout"][str(layout)] = cuda_ms(plain, 2)
+        del g, leaf
+        torch.cuda.empty_cache()
+    out["bwd_ms"] = max(out["bwd_ms_by_layout"].values())
+    out["bwd_plain_ms"] = max(out["bwd_plain_ms_by_layout"].values())
+    del ell
+    log(f"[c5] K9/K10 ({out['shape']}) against the ATen passes: K9 "
+        f"{out['fwd_ulps']} ulps, {out['fwd_ms']:.4f} ms "
+        f"({out['fwd_no_l_ms']:.4f} without L; plain {out['fwd_plain_ms']:.2f}; bound "
+        f"{out['fwd_bytes_ms']:.4f} ms, bytes), K10 {out['bwd_ulps']} ulps, "
+        f"{out['bwd_ms']:.4f} ms at the slowest cotangent layout "
+        f"({out['bwd_ms_by_layout']}; plain {out['bwd_plain_ms']:.2f}; "
+        f"bound {out['bwd_bytes_ms']:.4f} ms, bytes)")
+    check(out["fwd_ulps"] == 0 and out["bwd_ulps"] == 0,
+          f"c5 K9/K10 against the ATen passes: {out['fwd_ulps']} and "
+          f"{out['bwd_ulps']} ulps")
+    return out
+
+
+def light_apply_entries(c5):
+    """The ``kernels`` summary's rows of K9 and K10, from ``c5_phase``."""
+    la = c5["light_apply"]
+    rows = []
+    for d, ms, ms_no_l in (("fwd", la["fwd_ms"], la["fwd_no_l_ms"]),
+                           ("bwd", la["bwd_ms"], None)):
+        rows.append({
+            "name": f"light_apply_{d}", "route": "cuda",
+            "source": "tpuvr_torch/csrc/light_apply.cu",
+            "replaces": "none: XLA fuses the light volume's sum and the "
+                        "emission multiply into one loop",
+            "launches": c5["fit"]["launches"][f"light_apply_{d}"],
+            "launches_by_path": {
+                "c5_fit": c5["fit"]["launches"][f"light_apply_{d}"],
+                "c5_mesh": c5["mesh"]["fit_counts"].get(
+                    f"light_apply_{d}", 0)},
+            "max_ulps": la[f"{d}_ulps"],
+            "ms": ms,
+            **({"ms_without_l": ms_no_l,
+                "bound_ms_without_l": la["fwd_no_l_bytes_ms"]}
+               if d == "fwd" else
+               {"ms_by_cotangent_layout": la["bwd_ms_by_layout"]}),
+            "plain_ms": la[f"{d}_plain_ms"],
+            "bound_ms": la[f"{d}_bytes_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": la["shape"],
+        })
+    return rows
 
 
 def c5_one_card(scene_dir):
@@ -3231,6 +3362,9 @@ def c5_one_card(scene_dir):
               and scale > 0.0 and err <= tol, f"c5 lit frame eps {eps}")
         check(k_counts["sweep_fwd"] > 0 and k_counts["tau_sweep"] == 1
               and k_counts["tau_sweep_dirs"] == lcfg.n_samples
+              and k_counts["light_apply_fwd"] == 1
+              and k_counts["light_apply_bwd"] == 0
+              and k_counts["light_apply_fallback"] == 0
               and not any(p_counts.values()),
               f"c5 lit frame eps {eps}: kernels {k_counts}, plain "
               f"{p_counts}")
@@ -3267,6 +3401,7 @@ def c5_one_card(scene_dir):
         shape=f"{tuple(sigma.shape)}, {len(rows)} directions over "
               f"{len(fields)} sweep axes, highest")
     del rows, fields, sigma
+    reset_counts()
     for _ in range(2):  # the second is the one kept: allocator warm
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -3279,6 +3414,7 @@ def c5_one_card(scene_dir):
         bake["prepare_grid_peak_gib"] = (
             torch.cuda.max_memory_allocated() - base) / 2**30
         del prep
+    bake["prepare_grid_launches"] = read_counts()
     out["bake"] = bake
     log(f"[c5] bake 512^3 ({bake['shape']}): K2 clusters {route[0]}, "
         f"directions {route[1]}, max abs err {err:.3e} of max {scale:.3f} "
@@ -3289,6 +3425,12 @@ def c5_one_card(scene_dir):
         f"peak {bake['prepare_grid_peak_gib']:.3f} GiB above the grid")
     check(err <= 1e-5 * scale and route == ({16: 1}, {16: lcfg.n_samples}),
           f"c5 bake: error {err:.3e}, launches {route}")
+    p_launches = bake["prepare_grid_launches"]
+    check(p_launches["light_apply_fwd"] == 2
+          and p_launches["light_apply_bwd"] == 0
+          and p_launches["light_apply_fallback"] == 0,
+          f"c5 prepare_grid twice: launches {p_launches}")
+    out["light_apply"] = light_apply_c5(grid, lcfg)
 
     # The first fit step's gradient from the fog at eps 0, 'highest'.
     groups = fit.group_views(st["cams"], st["shape"])
@@ -3325,6 +3467,9 @@ def c5_one_card(scene_dir):
     check(rel <= 1e-6 and gerr <= 1e-5 * scale, "c5 step vs plain")
     check(k_counts["sweep_fwd"] == 1 and k_counts["sweep_bwd"] == 1
           and k_counts["tau_sweep"] == 1 and k_counts["tau_adj"] == 0
+          and k_counts["light_apply_fwd"] == 1
+          and k_counts["light_apply_bwd"] == 1
+          and k_counts["light_apply_fallback"] == 0
           and not any(p_counts.values()),
           f"c5 step: kernels {k_counts}, plain {p_counts}")
     del res, k_grad, p_grad, grad
@@ -3428,6 +3573,9 @@ def c5_one_card(scene_dir):
     check(counts["sweep_fwd"] == steps and counts["sweep_bwd"] == steps
           and counts["tau_sweep"] == steps and counts["tau_adj"] == 0
           and counts["sweep_fwd_views"] == 0
+          and counts["light_apply_fwd"] == steps
+          and counts["light_apply_bwd"] == steps
+          and counts["light_apply_fallback"] == 0
           and by_size == {"tau_sweep": {16: steps},
                           "tau_sweep_dirs": {16: steps * lcfg.n_samples}},
           f"c5 fit launches {counts}, {by_size}")
@@ -3595,8 +3743,8 @@ def c5_phase():
               and f["params_digest"] == f0["params_digest"] and f["finite"],
               "c5 mesh: the ranks' losses, gradients or parameters differ")
         want_step = {"sweep_fwd": 1, "sweep_bwd": 1, "tau_sweep_c16": 1,
-                     "tau_sweep_dirs": n_dirs,
-                     "collective_all_reduce": 1 + 4}
+                     "tau_sweep_dirs": n_dirs, "light_apply_fwd": 1,
+                     "light_apply_bwd": 1, "collective_all_reduce": 1 + 4}
         want_fit = {k: v * steps for k, v in want_step.items()}
         want_fit["collective_broadcast"] = 2
         check(f["step_counts"] == want_step and f["fit_counts"] == want_fit,
@@ -4366,10 +4514,11 @@ def main(argv=None):
     logs = _build.build({"fwd": ("sweep_fwd",),
                          "zshard": ("sweep_fwd", "sweep_bwd"),
                          "bench": ("sweep_fwd", "sweep_bwd"),
-                         "c5": ("sweep_fwd", "sweep_bwd", "tau_sweep"),
+                         "c5": ("sweep_fwd", "sweep_bwd", "tau_sweep",
+                                "light_apply"),
                          "shell": ("sweep_fwd", "sweep_bwd", "tau_sweep",
-                                   "tau_adj"),
-                         "light": ("tau_sweep", "tau_adj")}.get(
+                                   "tau_adj", "light_apply"),
+                         "light": ("tau_sweep", "tau_adj", "light_apply")}.get(
                              opts.phase, _build.SOURCES))
     log(f"[build] {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
@@ -4402,6 +4551,7 @@ def main(argv=None):
     if opts.phase == "c5":
         c5, _ = c5_phase()
         log(json.dumps({"c5": c5}))
+        log(json.dumps({"kernels": light_apply_entries(c5)}))
         return finish(t_start)
     if opts.phase == "shell":
         shell, _ = shell_phase(dev)
@@ -4839,6 +4989,7 @@ def main(argv=None):
                         for a, c in wk["cases"].items()},
         })
     kernels.append(ring_entry)
+    kernels.extend(light_apply_entries(c5))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
     log(json.dumps({"dist": dist}))

@@ -1398,3 +1398,176 @@ def test_device_ms_counts_no_span(card, tmp_path, monkeypatch):
     assert not [k for k, _ in top_on if k.startswith("tpuvr.")]
     assert {k for k, _ in top_on} == {k for k, _ in top_off}
     assert on == pytest.approx(off, rel=0.25)
+
+
+# The lit grid's one-pass assembly, K9 and K10 (csrc/light_apply.cu),
+# against the ATen passes they replace (kernels.light_apply's twins, which
+# ops.lighting runs on every other route): the same bits, since both do
+# the same f32 operations in the same order.
+
+LIGHT_UPS = [(0.0, 0.0, 1.0), (0.0, 0.0, -1.0), (0.3, -0.5, 0.8),
+             (-0.9, 0.1, 0.3)]
+
+
+def _ulps(a, b):
+    """Largest distance in f32 units in the last place between two
+    float32 tensors (signed zeros equal)."""
+    def key(t):
+        i = (t + 0.0).contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+def _lit_case(card, shape, n_samples, up, seed=0):
+    """A seeded (Z, Y, X, 4) grid (some density below 0), its lighting
+    config, direction axes and the batched sweep's taus."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.ops import lighting as olight
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    grid = torch.rand((*shape, 4), generator=gen, device=card)
+    grid[..., 0] -= 0.2
+    cfg = LightingConfig(mode="lightvolume", n_samples=n_samples, up=up)
+    table = olight.direction_table(cfg)
+    taus = olight._TauDirs.apply(grid[..., 0], table, "highest")
+    return grid, cfg, [row[0] for row in table], taus
+
+
+@pytest.mark.parametrize("shape", [(20, 33, 47), (17, 40, 9)])
+@pytest.mark.parametrize("n_samples", [4, 16, 100])
+@pytest.mark.parametrize("up", LIGHT_UPS)
+def test_light_apply_kernels_match_plain(card, shape, n_samples, up):
+    """K9's lit grid and L (and the lit grid alone, L not kept), and K10's
+    grid gradient for the cotangent as each sweep layout hands it back (and
+    a contiguous one), equal the ATen passes bit for bit: one launch each
+    way, and one more forward launch a further 64 directions (100: the
+    running sums carried from the first launch to the second)."""
+    from tpuvr_torch.kernels import light_apply as kla
+
+    grid, cfg, axes, taus = _lit_case(card, shape, n_samples, up)
+    if n_samples == 16:
+        assert set(axes) == {0, 1, 2}
+    scale = cfg.sky_intensity / cfg.n_samples
+    lit, ell = kla._forward(grid, taus, axes, scale, True)
+    ref_ell = kla.light_value_torch(taus, axes, scale)
+    assert _ulps(ell, ref_ell) == 0
+    assert _ulps(lit, kla.lit_grid_torch(grid, ref_ell)) == 0
+    assert torch.equal(kla._forward(grid, taus, axes, scale, False)[0], lit)
+    gen = torch.Generator(device=card).manual_seed(1)
+    for layout in ("contiguous", 0, 1, 2):
+        def out(t, layout=layout):
+            return (t if layout == "contiguous"
+                    else render.grid_to_sweep_layout(t, layout))
+
+        wts = torch.randn(out(grid).shape, generator=gen, device=card)
+        grads = []
+        for twin in (False, True):
+            g = grid.clone().requires_grad_(True)
+            before = kla.launches.copy()
+            fn = kla.light_apply_torch if twin else kla.light_apply
+            (out(fn(g, taus, axes, scale)) * wts).sum().backward()
+            assert dict(kla.launches - before) == (
+                {} if twin else {"fwd": -(-n_samples // kla.MAX_DIRS),
+                                 "bwd": 1})
+            grads.append(g.grad)
+        assert _ulps(grads[0], grads[1]) == 0
+
+
+def test_apply_lighting_takes_one_pass_on_the_card(card):
+    """A detached bake of a float32 grid on the card launches K9 (and K10
+    backward) and no fallback, with or without gradients, and equals the
+    ATen route; ``detach=False`` and 'persample' take the ATen passes,
+    each counted once."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+
+    grid, cfg, _, _ = _lit_case(card, (12, 14, 16), 16, (0.0, 0.0, 1.0))
+    g = grid.clone().requires_grad_(True)
+    before = kla.launches.copy()
+    lit = olight.apply_lighting(g, cfg)
+    lit.square().sum().backward()
+    with torch.no_grad():
+        lit_ng = olight.apply_lighting(grid, cfg)
+    assert dict(kla.launches - before) == {"fwd": 2, "bwd": 1}
+    ref = kla.lit_grid_torch(grid, olight.light_volume(grid[..., 0], cfg,
+                                                       device=card))
+    assert _ulps(lit.detach(), ref) == 0 and _ulps(lit_ng, ref) == 0
+    exact = LightingConfig(mode="persample", n_samples=2, secondary_dt=2.0)
+    for args, kw in (((grid, cfg), dict(detach=False)),
+                     ((grid[:6, :6, :6].contiguous(), exact), {})):
+        before = kla.launches.copy()
+        olight.apply_lighting(*args, **kw)
+        assert dict(kla.launches - before) == {"fallback": 1}
+
+
+@pytest.mark.parametrize("layout", ["strided", "offset"])
+def test_apply_lighting_takes_one_pass_for_any_layout(card, layout):
+    """A float32 grid on the card that is not contiguous (a permuted view,
+    512 wide) or not on a 16-byte boundary still takes K9 and K10 (the
+    wrapper copies it first) and counts no fallback; its lit grid and its
+    gradient, which reaches the base tensor, equal the ATen route's."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+
+    def view(b):
+        return (b.permute(2, 1, 0, 3) if layout == "strided"
+                else b[1:].view(9, 10, 11, 4))
+
+    gen = torch.Generator(device=card).manual_seed(2)
+    base = torch.rand((512, 6, 5, 4) if layout == "strided"
+                      else (1 + 9 * 10 * 11 * 4,), generator=gen,
+                      device=card)
+    cfg = LightingConfig(mode="lightvolume", n_samples=16,
+                         up=(0.3, -0.5, 0.8))
+    wts = torch.randn(view(base).shape, generator=gen, device=card)
+    outs = []
+    for plain in (False, True):
+        b = base.clone().requires_grad_(True)
+        g = view(b)
+        assert not g.is_contiguous() or g.data_ptr() % 16
+        before = kla.launches.copy()
+        lit = (kla.lit_grid_torch(g, olight.light_volume(
+            g[..., 0].detach(), cfg, device=card)) if plain
+            else olight.apply_lighting(g, cfg))
+        (lit * wts).sum().backward()
+        assert dict(kla.launches - before) == (
+            {} if plain else {"fwd": 1, "bwd": 1})
+        outs.append((lit.detach(), b.grad))
+    assert _ulps(outs[0][0], outs[1][0]) == 0
+    assert _ulps(outs[0][1], outs[1][1]) == 0
+
+
+@pytest.mark.parametrize("density_softplus", [False, True])
+def test_lit_fit_launches_one_pass_a_step_and_keeps_its_bits(
+        card, tmp_path, monkeypatch, density_softplus):
+    """A 3-step lit fit at 64^3 (16 directions, detached): one K9 and one
+    K10 a step, no fallback, and parameters equal to those of the same fit
+    through the ATen passes, bit for bit."""
+    from tpuvr_torch.config import LightingConfig, TrainConfig
+    from tpuvr_torch.io.synth import orbit_cameras
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+
+    gt = smoke_sphere(64, device=card)
+    cams = orbit_cameras(4, 64, res=48, elevation_deg=25.0)
+    rcfg = RenderConfig(early_stop_eps=0.0)
+    light = LightingConfig(mode="lightvolume", n_samples=16)
+    targets = fit.render_all_views(gt, cams, rcfg, lighting=light,
+                                   device=card)
+    cfg = TrainConfig(lr=2e-2, steps=3, views_per_batch=1, ckpt_every=0,
+                      seed=3, density_softplus=density_softplus)
+    params = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(olight, "light_apply",
+                                kla.light_apply_torch)
+        before = kla.launches.copy()
+        _, p, _ = fit.fit_grid(targets, cams, gt.shape, cfg, rcfg,
+                               run_dir=str(tmp_path / str(plain)),
+                               lighting=light, device=card)
+        assert dict(kla.launches - before) == (
+            {} if plain else {"fwd": 3, "bwd": 3})
+        params.append(p)
+    assert _ulps(params[0], params[1]) == 0

@@ -2,9 +2,12 @@
 one-direction route it replaced, on the CPU: the direction table, the
 light volume and the shadows' gradient through one batched sweep each way
 (f64 1e-12, f32 1e-5 against the JAX package's scan path; bit for bit
-against a sum of one-direction sweeps), the batched wrappers' twins, and
-the numpy twin of the cluster kernel's map of a plane over its CTAs
-(every cell kept once, every tap read from the CTA that keeps it)."""
+against a sum of one-direction sweeps), the batched wrappers' twins, the
+numpy twin of the cluster kernel's map of a plane over its CTAs (every
+cell kept once, every tap read from the CTA that keeps it), and the lit
+grid's one-pass assembly (``kernels.light_apply``): which calls take it,
+the fallback's count, its twin against ``apply_lighting`` and its
+wrapper's checks of the taus' layouts."""
 
 import jax
 import jax.numpy as jnp
@@ -16,8 +19,10 @@ from tpuvr.config import LightingConfig as JLightingConfig
 from tpuvr.io.synth import smoke_sphere
 from tpuvr.ops import lighting as jlight
 from tpuvr_torch.config import LightingConfig
+from tpuvr_torch.kernels import light_apply as tkla
 from tpuvr_torch.kernels import lighting as tklight
 from tpuvr_torch.ops import lighting as tlight
+from tpuvr_torch.utils import trace
 
 N = 10
 TOL = {"float64": 1e-12, "float32": 1e-5}
@@ -268,3 +273,177 @@ def test_cluster_route_capacity():
     assert sizes(4, 40) == []  # strips of one row
     assert tklight.cluster_plan(128, 128, 4)["rows"] == 32
     assert tklight.cluster_plan(128, 128, 4)["by"] == 8
+
+
+class _OnCard:
+    """A CPU tensor that says it lies on the card: for the route rule of
+    ``apply_lighting`` alone, which reads the grid's attributes."""
+
+    is_cuda = True
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+def _route_case(case):
+    """(grid, cfg, detach) of a route case on a 6x7x5 float32 grid."""
+    grid = torch.as_tensor(_grid("float32", 7)[:6, :, :5]).contiguous()
+    cfg = _cfg(4)
+    detach = True
+    if case == "no_detach":
+        detach = False
+    elif case == "persample":
+        cfg = LightingConfig(mode="persample", n_samples=2, secondary_dt=2.0)
+    elif case == "many":
+        cfg = _cfg(tkla.MAX_DIRS + 1)
+    elif case == "float64":
+        grid = grid.double()
+    elif case == "strided":
+        grid = grid.transpose(0, 1)
+    elif case == "offset":
+        grid = torch.cat([grid.new_zeros(1), grid.reshape(-1)])[1:].view(
+            grid.shape)
+    return grid, cfg, detach
+
+
+@pytest.mark.parametrize("case", ["card", "cpu", "no_detach", "persample",
+                                  "many", "float64", "strided", "offset"])
+def test_one_pass_takes_a_detached_float32_bake_on_the_card(case,
+                                                           monkeypatch):
+    """``apply_lighting`` takes K9/K10 for a detached 'lightvolume' bake of
+    a float32 grid on the card, in any layout and with any number of
+    directions, and the ATen passes, counted once, for every other grid and
+    configuration. The grids here say they lie on the card; the kernels'
+    place is taken by their twin."""
+    grid, cfg, detach = _route_case(case)
+    takes = tkla.takes
+    assert takes(grid if case == "cpu" else _OnCard(grid)) == (
+        case not in ("cpu", "float64"))
+    monkeypatch.setattr(tkla, "takes", lambda g: takes(
+        g if case == "cpu" else _OnCard(g)))
+    calls = []
+
+    def kernels(*args):
+        calls.append(args[0])
+        return tkla.light_apply_torch(*args)
+
+    monkeypatch.setattr(tlight, "light_apply", kernels)
+    before = tkla.launches.copy()
+    lit = tlight.apply_lighting(grid, cfg, detach=detach)
+    one_pass = case in ("card", "many", "strided", "offset")
+    assert len(calls) == one_pass
+    assert dict(tkla.launches - before) == ({} if one_pass
+                                            else {"fallback": 1})
+    ell = (tlight.light_volume_exact(grid[..., 0], cfg)
+           if cfg.mode == "persample"
+           else tlight.light_volume(grid[..., 0], cfg, device="cpu"))
+    assert torch.equal(lit, tkla.lit_grid_torch(grid, ell))
+
+
+@pytest.mark.parametrize("case", ["cpu", "no_detach", "persample",
+                                  "float64"])
+def test_each_aten_route_counts_one_fallback(case):
+    """A call that takes the ATen passes counts one ``light_apply_fallback``
+    and launches nothing, and its lit grid is the light volume times the
+    emission."""
+    grid, cfg, detach = _route_case(case)
+    before = trace.launch_counts()
+    lit = tlight.apply_lighting(grid, cfg, detach=detach)
+    counts = trace.launch_counts() - before
+    assert {k: v for k, v in counts.items()
+            if k.startswith("light_apply_")} == {"light_apply_fallback": 1}
+    ell = (tlight.light_volume_exact(grid[..., 0], cfg)
+           if cfg.mode == "persample"
+           else tlight.light_volume(grid[..., 0], cfg, device="cpu"))
+    assert torch.equal(lit[..., 0], grid[..., 0])
+    assert torch.equal(lit[..., 1:], grid[..., 1:] * ell[..., None])
+
+
+def test_light_apply_counters_in_launch_counts():
+    assert {"light_apply_fwd", "light_apply_bwd",
+            "light_apply_fallback"} <= set(trace.launch_counts())
+
+
+@pytest.mark.parametrize("n_samples", [4, 16])
+@pytest.mark.parametrize("up", UPS)
+def test_light_apply_twin_bits_equal_apply_lighting(n_samples, up):
+    """``light_apply``'s twin of the batched sweep's taus gives
+    ``apply_lighting``'s lit grid and grid gradient bit for bit, and the
+    wrapper's checks take the taus' layouts as the sweeps return them."""
+    grid = _grid("float32")
+    grid[..., 0] -= 0.02
+    wts = torch.as_tensor(
+        np.random.default_rng(10).normal(size=grid.shape).astype(np.float32))
+    cfg = _cfg(n_samples, up)
+    table = tlight.direction_table(cfg)
+    axes = [row[0] for row in table]
+    outs = []
+    for one_pass in (True, False):
+        g = torch.as_tensor(grid).clone().requires_grad_(True)
+        if one_pass:
+            taus = tlight._TauDirs.apply(g[..., 0].detach(), table,
+                                         "highest")
+            tkla._check(g, taus, axes)
+            lit = tkla.light_apply_torch(
+                g, taus, axes, cfg.sky_intensity / cfg.n_samples)
+        else:
+            lit = tlight.apply_lighting(g, cfg)
+        (lit * wts).sum().backward()
+        outs.append((lit.detach(), g.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("bad", ["grid_shape", "grid_dtype", "grid_strided",
+                                 "tau_layout", "tau_grad", "count",
+                                 "none"])
+def test_light_apply_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    """The wrapper's checks, which run before a launch: a contiguous
+    float32 (Z, Y, X, 4) grid, one contiguous float32 tau a direction in
+    its sweep axis's layout ((X, Y, Z), (Y, Z, X), (Z, Y, X)), at least
+    one, and no gradient to the taus. More than 64 directions pass: they
+    take one launch a run of 64."""
+    grid = torch.rand(4, 5, 6, 4)
+    table = tlight.direction_table(_cfg(16, (0.3, -0.5, 0.8)))
+    axes = [row[0] for row in table]
+    assert set(axes) == {0, 1, 2}
+    taus = list(tlight._TauDirs.apply(grid[..., 0], table, "highest"))
+    tkla._check(grid, taus, axes)
+    tkla._check(grid, taus * 5, axes * 5)
+    match = {"grid_shape": "(Z, Y, X, 4)", "grid_dtype": "float32",
+             "grid_strided": "contiguous", "tau_layout": "sweep axis",
+             "tau_grad": "no gradient", "count": "one tau a direction",
+             "none": "at least one"}[bad]
+    if bad == "grid_shape":
+        grid = grid[..., :3].contiguous()
+    elif bad == "grid_dtype":
+        grid = grid.double()
+    elif bad == "grid_strided":
+        grid = grid.transpose(0, 2)
+    elif bad == "tau_layout":
+        i = axes.index(0)  # an x-sweep tau handed over in (Z, Y, X)
+        taus[i] = taus[i].permute(tkla.grid_order(0)).contiguous()
+    elif bad == "tau_grad":
+        taus[0] = taus[0].clone().requires_grad_(True)
+    elif bad == "count":
+        taus = taus[:-1]
+    else:
+        taus, axes = [], []
+    with pytest.raises(ValueError, match=match):
+        tkla._check(grid, taus, axes)
+
+
+def test_light_apply_refuses_a_grid_off_the_card():
+    """The kernels' wrapper runs nothing on the CPU or in float64: there
+    ``light_apply_torch`` is the route."""
+    grid = torch.rand(4, 5, 6, 4)
+    table = tlight.direction_table(_cfg(4))
+    taus = tlight._TauDirs.apply(grid[..., 0], table, "highest")
+    axes = [row[0] for row in table]
+    for g in (grid, _OnCard(grid.double())):
+        assert not tkla.takes(g)
+    with pytest.raises(ValueError, match="on the card"):
+        tkla.light_apply(grid, taus, axes, 0.25)

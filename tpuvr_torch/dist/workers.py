@@ -224,8 +224,10 @@ def launch_counts():
     "sweep_bwd"), view batches ("sweep_fwd_views", "sweep_bwd_views"), the
     light bake's launches by cluster size ("tau_sweep_c<size>",
     "tau_adj_c<size>"; size 0 counts the plane loop's planes) and the
-    directions they swept ("tau_sweep_dirs", "tau_adj_dirs"), and each
-    collective ("collective_<kind>"). Subtract two of them for what ran
+    directions they swept ("tau_sweep_dirs", "tau_adj_dirs"), the lit
+    grid's assembly ("light_apply_fwd", "light_apply_bwd", and
+    "light_apply_fallback" for the ATen route), and each collective
+    ("collective_<kind>"). Subtract two of them for what ran
     between."""
     from tpuvr_torch.utils import trace
 

@@ -22,7 +22,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("sweep_fwd", "tau_sweep", "sweep_bwd", "tau_adj", "warp_rows")
+SOURCES = ("sweep_fwd", "tau_sweep", "sweep_bwd", "tau_adj", "warp_rows",
+           "light_apply")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

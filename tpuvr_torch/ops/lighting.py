@@ -8,8 +8,10 @@ sky side inward; :func:`light_volume` sweeps every direction in one call
 of ``tpuvr_torch.kernels.lighting.tau_sweep_dirs`` (one launch on the
 card). Lit rendering multiplies L into the emission channels, so the render
 sweep is unchanged. With ``detach`` (the config's default) no gradient
-flows through L; ``detach=False`` differentiates the shadows too, through
-the tau sweeps' adjoint (``tau_sweep_adj_dirs``, again one launch).
+flows through L, and on the card the sum and the multiply are one kernel
+each way (``tpuvr_torch.kernels.light_apply``); ``detach=False``
+differentiates the shadows too, through the tau sweeps' adjoint
+(``tau_sweep_adj_dirs``, again one launch).
 
 ``mode='persample'`` builds L exactly instead (:func:`light_volume_exact`):
 true secondary marches from every voxel centre through the trilinear
@@ -26,6 +28,13 @@ import torch
 
 from tpuvr_torch.config import LightingConfig
 from tpuvr_torch.device import resolve_device
+from tpuvr_torch.kernels import light_apply as klight_apply
+from tpuvr_torch.kernels.light_apply import (
+    grid_order,
+    light_apply,
+    light_value_torch,
+    lit_grid_torch,
+)
 from tpuvr_torch.kernels.lighting import (
     tau_sweep,
     tau_sweep_adj,
@@ -81,10 +90,6 @@ def direction_table(cfg: LightingConfig):
             for w in hemisphere_dirs(cfg.n_samples, cfg.up)]
 
 
-def _inverse(axis):
-    return tuple(int(i) for i in np.argsort(GRID_PERM[axis][:3]))
-
-
 class _Tau(torch.autograd.Function):
     """Differentiable tau sweep of one direction: the adjoint is another
     directional sweep with the negated shift, plane-ascending. The residual
@@ -116,7 +121,7 @@ def _directional_tau(sigma, w, precision="highest"):
     tau_p = _Tau.apply(sig_p.contiguous(), d_y, d_x, dt, precision)
     if flip:
         tau_p = tau_p.flip(0)
-    return tau_p.permute(_inverse(axis))
+    return tau_p.permute(grid_order(axis))
 
 
 class _TauDirs(torch.autograd.Function):
@@ -152,7 +157,7 @@ class _TauDirs(torch.autograd.Function):
         for (axis, *_), d in zip(ctx.table[::-1], ds[::-1]):
             field = by_axis[axis]
             term = torch.where(field > 0.0, d, torch.zeros_like(d)).permute(
-                _inverse(axis))
+                grid_order(axis))
             dsig = term if dsig is None else dsig + term
         return dsig, None, None
 
@@ -162,18 +167,20 @@ def light_volume(sigma, cfg: LightingConfig = LightingConfig(),
     """Sky-light volume L (Z, Y, X): mean hemisphere transmittance.
 
     Every direction's tau comes from one batched sweep, so all N tau
-    volumes (and a copy of sigma for each sweep axis other than z) are
-    alive at once: N + 3 volumes of sigma's size at the peak, 1.3 GB for
-    N = 16 at 256^3 in f32. With gradients the copies and the exponentials
-    stay for the backward.
+    volumes are alive at once: with a copy of sigma for each sweep axis
+    (none for the z axis of a contiguous sigma) during the sweep, then
+    with the running sum, one direction's negation and its exponential
+    (``kernels.light_apply.light_value_torch``, the ATen passes): N + 3
+    volumes of sigma's size besides sigma at the peak, 1.3 GB for N = 16
+    at 256^3 in f32. With gradients the copies and the exponentials stay
+    for the backward. :func:`apply_lighting` bakes a detached light
+    volume on the card without the sum and the exponentials.
     """
     sigma = torch.as_tensor(sigma, device=resolve_device(device))
     table = direction_table(cfg)
-    total = torch.zeros_like(sigma)
-    for (axis, *_), tau in zip(table, _TauDirs.apply(sigma, table,
-                                                     precision)):
-        total = total + torch.exp(-tau.permute(_inverse(axis)))
-    return (cfg.sky_intensity / cfg.n_samples) * total
+    return light_value_torch(_TauDirs.apply(sigma, table, precision),
+                             [axis for axis, *_ in table],
+                             cfg.sky_intensity / cfg.n_samples)
 
 
 # Points of one trilinear gather of the exact marcher: consecutive steps
@@ -267,9 +274,26 @@ def apply_lighting(grid, cfg: LightingConfig = LightingConfig(),
     autograd memory-hungry). ``detach`` (default ``cfg.detach``) stops
     gradients at the light volume; ``detach=False`` differentiates the
     shadows too: through the tau sweeps' adjoint, or by autograd through
-    every step of the exact marches."""
+    every step of the exact marches.
+
+    A detached 'lightvolume' bake of a float32 grid on the card, in any
+    layout (``kernels.light_apply.takes``), goes from the tau sweeps
+    straight to one pass each way (``kernels.light_apply``: K9 sums the
+    exponentials, scales and multiplies the emission; K10 is its
+    backward), which frees each tau once read and makes no sum or
+    exponential: N + 3 volumes of sigma's size at the peak (the taus and a
+    copy of sigma for each sweep axis), then the lit grid. Every other
+    call (the CPU, ``detach=False``, 'persample', another dtype) takes the
+    ATen passes (:func:`light_volume`, then ``lit_grid_torch``), counted
+    as ``light_apply_fallback``; both give the same bits."""
     if detach is None:
         detach = cfg.detach
+    if cfg.mode == "lightvolume" and detach and klight_apply.takes(grid):
+        table = direction_table(cfg)
+        taus = _TauDirs.apply(grid[..., 0].detach(), table, precision)
+        return light_apply(grid, taus, [axis for axis, *_ in table],
+                           cfg.sky_intensity / cfg.n_samples)
+    klight_apply.launches["fallback"] += 1
     sigma = grid[..., 0].detach() if detach else grid[..., 0]
     if cfg.mode == "lightvolume":
         ell = light_volume(sigma, cfg, precision, device=grid.device)
@@ -277,5 +301,4 @@ def apply_lighting(grid, cfg: LightingConfig = LightingConfig(),
         ell = light_volume_exact(sigma, cfg)
     else:
         raise ValueError(f"unknown lighting mode: {cfg.mode!r}")
-    return torch.cat([grid[..., :1], grid[..., 1:4] * ell[..., None]],
-                     dim=-1)
+    return lit_grid_torch(grid, ell)
