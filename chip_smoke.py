@@ -357,8 +357,10 @@ def reset_counts():
         sweep_bwd,
         warp,
     )
+    from tpuvr_torch.ops import lighting as olight
 
     light_apply.launches.clear()
+    olight.shadow.clear()
     sweep.launches.clear()
     sweep_bwd.launches.clear()
     warp.launches.clear()
@@ -379,9 +381,11 @@ def read_counts():
     ("tau_sweep_dirs", "tau_adj_dirs"), with the plane loop's share
     ("tau_sweep_plane_loop", "tau_adj_plane_loop"), the row warp's
     ("warp_rows_fwd", "warp_rows_bwd"), the ring backward's
-    ("sweep_bwd_ring"), and the lit grid's assembly: K9 and K10 launches
+    ("sweep_bwd_ring"), the lit grid's assembly: K9 and K10 launches
     ("light_apply_fwd", "light_apply_bwd") and the calls that took the
-    ATen passes instead ("light_apply_fallback")."""
+    ATen passes instead ("light_apply_fallback"), and the differentiable
+    light bakes and their backward passes ("light_shadow",
+    "light_shadow_adjoint"; calls, not launches)."""
     from tpuvr_torch.utils.trace import launch_counts
 
     c = launch_counts()
@@ -394,7 +398,8 @@ def read_counts():
                              "sweep_bwd_views", "warp_rows_fwd",
                              "warp_rows_bwd", "sweep_bwd_ring",
                              "light_apply_fwd", "light_apply_bwd",
-                             "light_apply_fallback")}
+                             "light_apply_fallback", "light_shadow",
+                             "light_shadow_adjoint")}
     out.update(tau_sweep=total("tau_sweep_c"), tau_adj=total("tau_adj_c"),
                tau_sweep_plane_loop=c["tau_sweep_c0"],
                tau_adj_plane_loop=c["tau_adj_c0"])
@@ -3296,7 +3301,9 @@ def c5_one_card(scene_dir):
     and host issue time, peak memory, launches by kernel; (d) the lit
     viewer of ``tools/run_judged.py``'s c5 command: the lit frame with its
     bake and alone on a prepared grid at 'default' and 'highest', the bake
-    alone, a lit forward+backward (detached light). Returns the numbers."""
+    alone, a lit forward+backward (detached light); (e) the same step and
+    fit with the light not detached (:func:`c5_shadow`). Returns the
+    numbers."""
     from tpuvr_torch.dist.workers import CaptureGrad, fog_params
     from tpuvr_torch.io.synth import smoke_sphere
     from tpuvr_torch.kernels import lighting as klight
@@ -3649,9 +3656,211 @@ def c5_one_card(scene_dir):
     log("[c5] lit viewer (events, ms): " + ", ".join(
         f"{k} {v:.4f}" if "rays" not in k else f"{k} {v:.4g}"
         for k, v in viewer.items() if v is not None))
+
+    # (e) The c5-shadow fit: the same step and fit, the light not detached.
+    out["shadow"] = c5_shadow(st, grid, fog, key, stacked, g_targets,
+                              targets, f"{scene_dir}/shadow")
     del grid, targets, fog, stacked, g_targets
     torch.cuda.empty_cache()
     return out
+
+
+def c5_shadow(st, grid, fog, key, stacked, g_targets, targets, run_dir):
+    """The c5-shadow fit (c5 with ``lighting.detach`` false: the density's
+    gradient flows through the 16 directions' transmittance) on one card.
+    (a) The first step from the fog at eps 0 ('highest') through the
+    kernels against the same step through the plain versions: loss 1e-6
+    relative, gradient 1e-5 of max|grad|, as the detached step. The
+    kernels' step launches K1, K3, K2 and K4 once each (K2 and K4 one
+    cluster launch of size 16 over the 16 directions) and no K9/K10 (the
+    assembly takes the ATen passes: one ``light_apply_fallback``), with one
+    ``light_shadow`` bake and one adjoint; the plain step launches nothing.
+    (b) ``fit_grid`` for C5_STEPS steps with the tool's settings: K2 and K4
+    once a step, clusters of 16, 16 directions each, no K9/K10, one shadow
+    bake and adjoint a step; ms/step and peak. (c) K4 alone over the 16
+    directions of the 512^3 smoke sphere's density from seeded cotangents
+    against its plain version, and K2 and K4 in CUDA-event times in
+    interleaved rounds, with their bounds. Returns the numbers."""
+    from tpuvr_torch.dist.workers import CaptureGrad
+    from tpuvr_torch.kernels import lighting as klight
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ref.march import GRID_PERM
+    from tpuvr_torch.train import fit
+
+    lcfg = dataclasses.replace(st["lighting"], detach=False)
+    n_dirs = lcfg.n_samples
+    out = {}
+
+    # (a) The first step, kernels against plain.
+    pick, r0s = np.zeros(1, int), np.zeros(1, np.int32)
+    res = {}
+    for label, impl in (("kernels", "cuda"), ("plain", "torch")):
+        step = fit.make_train_step(key, 1, CaptureGrad(), st["exact"],
+                                   False, impl, lighting=lcfg)
+        with plain_versions() if impl == "torch" else contextlib.nullcontext():
+            reset_counts()
+            _, grad, loss = step(fog, None, stacked, g_targets, pick, r0s)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            sizes = (dict(klight.launches), dict(klight.adj_launches))
+        res[label] = (float(loss), grad, counts, sizes)
+        del step, grad
+    (k_loss, k_grad, k_counts, k_sizes), (p_loss, p_grad, p_counts, _) = (
+        res["kernels"], res["plain"])
+    del res
+    scale = float(p_grad.abs().max())
+    gerr = float((k_grad - p_grad).abs().max())
+    rel = abs(k_loss - p_loss) / p_loss
+    del k_grad, p_grad
+    # The ATen assembly and the shadow counters count calls, not launches.
+    calls = ("light_apply_fallback", "light_shadow", "light_shadow_adjoint")
+    out["step_check"] = dict(loss=k_loss, plain_loss=p_loss,
+                             loss_rel_err=rel, grad_err_of_max=gerr / scale,
+                             max_grad=scale, launches=k_counts,
+                             clusters={"tau_sweep": k_sizes[0],
+                                       "tau_adj": k_sizes[1]},
+                             plain_counts=p_counts)
+    log(f"[c5-shadow] first step (group {key}, eps 0, highest, light not "
+        f"detached) kernels vs plain: loss {k_loss:.7f} vs {p_loss:.7f} "
+        f"({rel:.2e} relative, tol 1e-6); gradient {gerr / scale:.3e} of "
+        f"max|grad| {scale:.3e} (tol 1e-5); kernel launches {k_counts}; K2 "
+        f"and K4 cluster launches by size {k_sizes}; plain {p_counts}")
+    check(rel <= 1e-6 and gerr <= 1e-5 * scale, "c5-shadow step vs plain")
+    check(k_counts["sweep_fwd"] == 1 and k_counts["sweep_bwd"] == 1
+          and k_counts["tau_sweep"] == 1 and k_counts["tau_adj"] == 1
+          and k_counts["tau_sweep_dirs"] == n_dirs
+          and k_counts["tau_adj_dirs"] == n_dirs
+          and k_sizes == ({16: 1}, {16: 1})
+          and k_counts["light_apply_fwd"] == 0
+          and k_counts["light_apply_bwd"] == 0
+          and k_counts["light_apply_fallback"] == 1
+          and k_counts["light_shadow"] == 1
+          and k_counts["light_shadow_adjoint"] == 1
+          and not any(v for k, v in p_counts.items() if k not in calls),
+          f"c5-shadow step: kernels {k_counts} {k_sizes}, plain {p_counts}")
+
+    # (b) The fit.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset_counts()
+    t0 = time.time()
+    _, params, hist = fit.fit_grid(targets, st["cams"], st["shape"],
+                                   st["train"], st["fit_run"],
+                                   run_dir=run_dir, lighting=lcfg,
+                                   params_init=fog)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_counts()
+    by_size = {name: dict(c) for name, c in (
+        ("tau_sweep", klight.launches), ("tau_adj", klight.adj_launches),
+        ("tau_sweep_dirs", klight.directions),
+        ("tau_adj_dirs", klight.adj_directions))}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = hist["loss"]
+    ms = float(np.mean(hist["step_ms"][1:]))
+    finite = bool(torch.isfinite(params).all())
+    del params
+    steps = st["train"].steps
+    out["fit"] = dict(loss=loss, step_ms=hist["step_ms"], ms_per_step=ms,
+                      peak_gib=peak, held_gib=held, launches=counts,
+                      by_cluster_size=by_size, wall_s=wall)
+    log(f"[c5-shadow] fit {st['n']}^3, {C5_VIEWS} lit views, {steps} "
+        f"steps, light not detached: {ms:.3f} ms/step after the first "
+        f"({hist['step_ms'][0]:.1f} ms), loss "
+        + " -> ".join(f"{x:.6f}" for x in loss)
+        + f"; peak {peak:.2f} GiB ({held:.2f} held before the fit); "
+        f"launches {counts}; tau launches and directions by cluster size "
+        f"{by_size}; fit_grid wall {wall:.2f} s")
+    check(len(loss) == steps and all(np.isfinite(loss)) and finite,
+          "c5-shadow fit losses")
+    check(counts["sweep_fwd"] == steps and counts["sweep_bwd"] == steps
+          and counts["tau_sweep"] == steps and counts["tau_adj"] == steps
+          and counts["light_apply_fwd"] == 0
+          and counts["light_apply_bwd"] == 0
+          and counts["light_apply_fallback"] == steps
+          and counts["light_shadow"] == steps
+          and counts["light_shadow_adjoint"] == steps
+          and by_size == {"tau_sweep": {16: steps}, "tau_adj": {16: steps},
+                          "tau_sweep_dirs": {16: steps * n_dirs},
+                          "tau_adj_dirs": {16: steps * n_dirs}},
+          f"c5-shadow fit launches {counts}, {by_size}")
+
+    # (c) K4 alone at 512^3 over the 16 directions against its plain
+    # version; K2 and K4 timed in turn.
+    sigma = grid[..., 0].contiguous()
+    table = olight.direction_table(lcfg)
+    fields = {a: sigma.permute(GRID_PERM[a][:3]).contiguous()
+              for a in sorted({row[0] for row in table})}
+    del sigma
+    gen = torch.Generator(device=grid.device).manual_seed(5)
+    rows = [(fields[a], flip, d_y, d_x, dt)
+            for a, flip, d_y, d_x, dt in table]
+    adj_rows = [(torch.randn(fields[a].shape, generator=gen,
+                             device=grid.device),
+                 flip, d_y, d_x, dt) for a, flip, d_y, d_x, dt in table]
+    before = (klight.adj_launches.copy(), klight.adj_directions.copy())
+    ds = klight.tau_sweep_adj_dirs(adj_rows)
+    torch.cuda.synchronize()
+    route = (dict(klight.adj_launches - before[0]),
+             dict(klight.adj_directions - before[1]))
+    ref = klight.tau_sweep_adj_dirs_torch(adj_rows)
+    torch.cuda.synchronize()
+    kscale = max(float(r.abs().max()) for r in ref)
+    kerr = max(float((a - b).abs().max()) for a, b in zip(ds, ref))
+    del ds, ref
+    plain_ms = cuda_ms(lambda: klight.tau_sweep_adj_dirs_torch(adj_rows), 1,
+                       warmup=0)
+    times = interleaved_ms(
+        {"k2": lambda: klight.tau_sweep_dirs(rows),
+         "k4": lambda: klight.tau_sweep_adj_dirs(adj_rows)}, 3)
+    k2_b = tau_bound(list(fields.values()), len(rows))
+    k4_b = tau_bound([g for g, *_ in adj_rows], len(adj_rows))
+    del rows, adj_rows, fields
+    out["k4"] = dict(
+        max_abs_err=kerr, scale=kscale, clusters=route[0],
+        directions=route[1], ms=times["k4"], plain_ms=plain_ms,
+        k2_ms=times["k2"], bytes_ms=k4_b[0], ops_ms=k4_b[1],
+        bound_ms=max(k4_b),
+        bound_by="bytes" if k4_b[0] >= k4_b[1] else "operations",
+        k2_bound_ms=max(k2_b),
+        shape=f"{tuple(grid.shape[:3])}, {len(table)} directions, seeded "
+              f"cotangents, highest")
+    log(f"[c5-shadow] K4 alone ({out['k4']['shape']}): clusters "
+        f"{route[0]}, directions {route[1]}, max abs err {kerr:.3e} of max "
+        f"{kscale:.3f} (tol 1e-5 of max); K4 {times['k4']:.4f} ms, K2 "
+        f"{times['k2']:.4f} ms (events, median of 5 interleaved rounds; "
+        f"bounds {max(k4_b):.4f}, {max(k2_b):.4f}); plain K4 "
+        f"{plain_ms:.1f} ms")
+    check(kerr <= 1e-5 * kscale and route == ({16: 1}, {16: n_dirs}),
+          f"c5 K4: error {kerr:.3e}, launches {route}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def tau_adj_c5_entry(c5):
+    """The ``kernels`` summary's row of K4 at c5's size, from
+    :func:`c5_shadow`: its time and error over the 16 directions at 512^3,
+    and its launches in the c5-shadow step and fit."""
+    sh = c5["shadow"]
+    k4 = sh["k4"]
+    return {
+        "name": "tau_adj", "route": "cuda", "config": "c5-shadow",
+        "source": "tpuvr_torch/csrc/tau_adj.cu",
+        "also_source": "tpuvr_torch/csrc/tau_cluster.cuh",
+        "replaces": "tpuvr/kernels/lighting.py:64",
+        "launches": sh["fit"]["launches"]["tau_adj"],
+        "launches_by_path": {
+            "c5_shadow_step": sh["step_check"]["launches"]["tau_adj"],
+            "c5_shadow_fit": sh["fit"]["launches"]["tau_adj"]},
+        "clusters_by_size": sh["fit"]["by_cluster_size"]["tau_adj"],
+        "directions_by_size": sh["fit"]["by_cluster_size"]["tau_adj_dirs"],
+        "max_abs_err": k4["max_abs_err"], "err_scale": k4["scale"],
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": None,
+        "shape": k4["shape"] + ", one launch",
+    }
 
 
 def c5_rank(scene_dir):
@@ -4515,7 +4724,7 @@ def main(argv=None):
                          "zshard": ("sweep_fwd", "sweep_bwd"),
                          "bench": ("sweep_fwd", "sweep_bwd"),
                          "c5": ("sweep_fwd", "sweep_bwd", "tau_sweep",
-                                "light_apply"),
+                                "tau_adj", "light_apply"),
                          "shell": ("sweep_fwd", "sweep_bwd", "tau_sweep",
                                    "tau_adj", "light_apply"),
                          "light": ("tau_sweep", "tau_adj", "light_apply")}.get(
@@ -4551,7 +4760,8 @@ def main(argv=None):
     if opts.phase == "c5":
         c5, _ = c5_phase()
         log(json.dumps({"c5": c5}))
-        log(json.dumps({"kernels": light_apply_entries(c5)}))
+        log(json.dumps({"kernels": light_apply_entries(c5)
+                        + [tau_adj_c5_entry(c5)]}))
         return finish(t_start)
     if opts.phase == "shell":
         shell, _ = shell_phase(dev)
@@ -4990,6 +5200,7 @@ def main(argv=None):
         })
     kernels.append(ring_entry)
     kernels.extend(light_apply_entries(c5))
+    kernels.append(tau_adj_c5_entry(c5))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
     log(json.dumps({"dist": dist}))

@@ -1571,3 +1571,66 @@ def test_lit_fit_launches_one_pass_a_step_and_keeps_its_bits(
             {} if plain else {"fwd": 3, "bwd": 3})
         params.append(p)
     assert _ulps(params[0], params[1]) == 0
+
+
+@pytest.mark.parametrize("density_softplus", [False, True],
+                         ids=["raw", "softplus"])
+def test_undetached_lit_fit_matches_the_shadow_reference(
+        card, tmp_path, density_softplus):
+    """The benchmark's c5-shadow fit (light not detached) cut to 64^3 at
+    64^2, 16 directions, 3 steps through ``fit_grid`` as its job calls
+    it: the first step's loss (1e-5 relative) and each leaf's gradient
+    (1e-5 of the leaf's max|grad|: the sweeps, K2 and K4 sum in other
+    orders than the reference's dense matmuls) against
+    ``vrbench/ref/shadow.py`` on the card, TF32 off; one ``light_shadow``
+    bake, one ``light_shadow_adjoint`` and 16 adjoint directions a step,
+    the span ``tpuvr.light.adjoint`` once a step, no K9/K10."""
+    from tpuvr_torch.utils import trace
+    from vrbench import fitjob
+    from vrbench.ref import shadow as RS
+    from vrbench.ref import train as RT
+    from vrbench.ref.sweep import strict_f32
+    from vrbench.spec import Spec
+
+    strict_f32()
+    cfg = Spec().config("c5-shadow")
+    cfg.update(grid_n=64, res=64, density_softplus=density_softplus)
+    assert cfg["lighting"]["n_samples"] == 16
+    inp = fitjob.Inputs(cfg, {}, 2**31 + 5, card)
+    gen = torch.Generator(device=card).manual_seed(6)
+    p0 = torch.rand(inp.shape, generator=gen, device=card) + 0.1
+    # density in [-0.06, 0.24), or in [-3, -1) raw through softplus
+    p0[..., 0] = ((p0[..., 0] - 0.1) * 2.0 - 3.0 if density_softplus
+                  else (p0[..., 0] - 0.3) * 0.3)
+    rcfg, lcfg = fitjob.program_configs(cfg)
+    grads = []
+
+    class Keep(fit.Adam):
+        def update(self, g, state):
+            grads.append(g.clone())
+            return super().update(g, state)
+
+    steps = 3
+    before = trace.launch_counts()
+    with trace.recording():
+        _, _, hist = fit.fit_grid(
+            inp.targets, fitjob.program_cameras(inp.cams), inp.shape,
+            fitjob.train_config(cfg, steps, inp.draw.fit_seed), rcfg,
+            lighting=lcfg, params_init=p0, opt=Keep(cfg["lr"]),
+            run_dir=str(tmp_path), device=card, **fitjob.fit_options(cfg))
+        torch.cuda.synchronize()
+        snap = trace.snapshot()
+    counts = trace.launch_counts() - before
+    assert counts["light_shadow"] == steps
+    assert counts["light_shadow_adjoint"] == steps
+    assert counts["tau_adj_dirs"] == 16 * steps
+    assert counts["light_apply_fwd"] == counts["light_apply_bwd"] == 0
+    assert snap["totals"]["tpuvr.light.adjoint"]["count"] == steps
+    pick = RT.draws(inp.views, cfg, 1, inp.draw.fit_seed)[0]
+    loss, g = RS.loss_and_grad(p0, inp.views, inp.targets, pick, cfg, 64)
+    assert abs(hist["loss"][0] - float(loss)) <= 1e-5 * abs(float(loss))
+    for c in range(4):
+        scale = float(g[..., c].abs().max())
+        assert scale > 0
+        err = float((grads[0][..., c] - g[..., c]).abs().max())
+        assert err <= 1e-5 * scale, (c, err / scale)

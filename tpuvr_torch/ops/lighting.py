@@ -11,7 +11,11 @@ sweep is unchanged. With ``detach`` (the config's default) no gradient
 flows through L, and on the card the sum and the multiply are one kernel
 each way (``tpuvr_torch.kernels.light_apply``); ``detach=False``
 differentiates the shadows too, through the tau sweeps' adjoint
-(``tau_sweep_adj_dirs``, again one launch).
+(``tau_sweep_adj_dirs``, again one launch). Such a bake, one whose
+density takes a gradient, counts as ``light_shadow`` in
+``utils.trace.launch_counts()``, and its backward (the adjoint launch, the
+relu masks and the directions' sum) as ``light_shadow_adjoint``, under the
+span ``tpuvr.light.adjoint``; a detached bake runs none of it.
 
 ``mode='persample'`` builds L exactly instead (:func:`light_volume_exact`):
 true secondary marches from every voxel centre through the trilinear
@@ -21,6 +25,7 @@ plain XLA. It is the oracle that the sweeps are held against.
 
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
@@ -43,6 +48,13 @@ from tpuvr_torch.kernels.lighting import (
 )
 from tpuvr_torch.ref.march import GRID_PERM, PT_PERM, _relu
 from tpuvr_torch.ref.sample import trilinear
+from tpuvr_torch.utils import trace
+
+# Differentiable 'lightvolume' bakes ("bake": the tau sweeps of a density
+# that takes a gradient) and their backward passes ("adjoint").
+shadow: collections.Counter[str] = collections.Counter()
+trace.counter(lambda: {"light_shadow": shadow["bake"],
+                       "light_shadow_adjoint": shadow["adjoint"]})
 
 
 def hemisphere_dirs(n: int, up=(0.0, 0.0, 1.0)) -> np.ndarray:
@@ -133,7 +145,11 @@ class _TauDirs(torch.autograd.Function):
     adjoint call over every direction, then the relu mask, and sums the
     directions' gradients from the last to the first: the order in which
     autograd adds them up when each direction is its own function
-    (:func:`_directional_tau`), so that both give the same bits."""
+    (:func:`_directional_tau`), so that both give the same bits.
+
+    The backward counts as ``light_shadow_adjoint`` and runs under the
+    span ``tpuvr.light.adjoint`` (on autograd's thread, inside the
+    caller's backward)."""
 
     @staticmethod
     def forward(ctx, sigma, table, precision):
@@ -148,17 +164,20 @@ class _TauDirs(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
-        by_axis = dict(zip(ctx.axes, ctx.saved_tensors))
-        ds = tau_sweep_adj_dirs(
-            [(g.contiguous(), flip, d_y, d_x, dt)
-             for g, (_, flip, d_y, d_x, dt) in zip(gs, ctx.table)],
-            ctx.precision)
-        dsig = None
-        for (axis, *_), d in zip(ctx.table[::-1], ds[::-1]):
-            field = by_axis[axis]
-            term = torch.where(field > 0.0, d, torch.zeros_like(d)).permute(
-                grid_order(axis))
-            dsig = term if dsig is None else dsig + term
+        shadow["adjoint"] += 1
+        with trace.span("tpuvr.light.adjoint"):
+            by_axis = dict(zip(ctx.axes, ctx.saved_tensors))
+            ds = tau_sweep_adj_dirs(
+                [(g.contiguous(), flip, d_y, d_x, dt)
+                 for g, (_, flip, d_y, d_x, dt) in zip(gs, ctx.table)],
+                ctx.precision)
+            dsig = None
+            for (axis, *_), d in zip(ctx.table[::-1], ds[::-1]):
+                field = by_axis[axis]
+                term = torch.where(field > 0.0, d,
+                                   torch.zeros_like(d)).permute(
+                                       grid_order(axis))
+                dsig = term if dsig is None else dsig + term
         return dsig, None, None
 
 
@@ -173,10 +192,13 @@ def light_volume(sigma, cfg: LightingConfig = LightingConfig(),
     (``kernels.light_apply.light_value_torch``, the ATen passes): N + 3
     volumes of sigma's size besides sigma at the peak, 1.3 GB for N = 16
     at 256^3 in f32. With gradients the copies and the exponentials stay
-    for the backward. :func:`apply_lighting` bakes a detached light
-    volume on the card without the sum and the exponentials.
+    for the backward, and the bake counts as ``light_shadow``.
+    :func:`apply_lighting` bakes a detached light volume on the card
+    without the sum and the exponentials.
     """
     sigma = torch.as_tensor(sigma, device=resolve_device(device))
+    if sigma.requires_grad and torch.is_grad_enabled():
+        shadow["bake"] += 1
     table = direction_table(cfg)
     return light_value_torch(_TauDirs.apply(sigma, table, precision),
                              [axis for axis, *_ in table],

@@ -4,9 +4,14 @@ A span marks one phase of the host's work: the trainer's ``tpuvr.fit.*``
 (``fit_grid``'s planning, draws, relayouts, loss readbacks and
 checkpoints; each step's gather, forward, bake, loss, backward, reduce and
 Adam), a frame's ``tpuvr.render.*`` (plan, sweep, warp) and
-``prepare_grid``'s ``tpuvr.prepare.*`` (bake, layout). The spans are flat:
-none encloses another, so a profiler's timeline names each stretch of host
-time after the one phase it fell in.
+``prepare_grid``'s ``tpuvr.prepare.*`` (bake, layout), and the shadows'
+backward ``tpuvr.light.adjoint`` (``ops.lighting``: the adjoint launch,
+the relu masks and the directions' sum of an undetached bake). The spans
+are flat: none encloses another, so a profiler's timeline names each
+stretch of host time after the one phase it fell in. One exception:
+``tpuvr.light.adjoint`` runs inside the backward, so it falls in time
+inside ``tpuvr.fit.backward``; on the card it runs on autograd's own
+thread, where no request is open.
 
 Spans are on while a torch profiler runs, or inside :func:`recording`.
 Off, :func:`span` checks the profiler's flag and returns a shared null
@@ -64,7 +69,10 @@ def launch_counts():
     launches by cluster size ("tau_sweep_c<size>", "tau_adj_c<size>"; size
     0 counts the plane loop's planes) and the directions they swept
     ("tau_sweep_dirs", "tau_adj_dirs"), the row warp's launches
-    ("warp_rows_fwd", "warp_rows_bwd"), the ring backward's calls that
+    ("warp_rows_fwd", "warp_rows_bwd"), the lit grid's assembly
+    ("light_apply_fwd", "light_apply_bwd", "light_apply_fallback"), the
+    differentiable light bakes and their backward passes ("light_shadow",
+    "light_shadow_adjoint"), the ring backward's calls that
     launched K6 ("sweep_bwd_ring"), and each collective
     ("collective_<kind>"). Subtract two of them for what ran between. The
     counters live beside what they count, in ``tpuvr_torch.kernels`` and
@@ -222,7 +230,8 @@ def snapshot() -> dict:
     """The latest recording period (empty where none began):
 
     - ``totals``: {span name: {"count", "host_s", "self_s"}}, exact; the
-      spans are flat, so a span's self time is its host time;
+      spans are flat, so a span's self time is its host time (the one
+      span on autograd's thread is left inside ``tpuvr.fit.backward``'s);
     - ``requests``: {kind: {"count", "host_s"}}, exact, of the request
       records (a step from its entry to its return, a frame likewise);
     - ``spans``: the newest :data:`DETAIL` spans as (name, start ns, end ns,
