@@ -381,9 +381,10 @@ def read_counts():
     ("tau_sweep_dirs", "tau_adj_dirs"), with the plane loop's share
     ("tau_sweep_plane_loop", "tau_adj_plane_loop"), the row warp's
     ("warp_rows_fwd", "warp_rows_bwd"), the ring backward's
-    ("sweep_bwd_ring"), the lit grid's assembly: K9 and K10 launches
-    ("light_apply_fwd", "light_apply_bwd") and the calls that took the
-    ATen passes instead ("light_apply_fallback"), and the differentiable
+    ("sweep_bwd_ring"), the lit grid's assembly: K9, K10, K11 and K12
+    launches ("light_apply_fwd", "light_apply_bwd",
+    "light_apply_shadow_bwd", "light_apply_mask") and the calls that took
+    the ATen passes instead ("light_apply_fallback"), and the differentiable
     light bakes and their backward passes ("light_shadow",
     "light_shadow_adjoint"; calls, not launches)."""
     from tpuvr_torch.utils.trace import launch_counts
@@ -398,6 +399,7 @@ def read_counts():
                              "sweep_bwd_views", "warp_rows_fwd",
                              "warp_rows_bwd", "sweep_bwd_ring",
                              "light_apply_fwd", "light_apply_bwd",
+                             "light_apply_shadow_bwd", "light_apply_mask",
                              "light_apply_fallback", "light_shadow",
                              "light_shadow_adjoint")}
     out.update(tau_sweep=total("tau_sweep_c"), tau_adj=total("tau_adj_c"),
@@ -3150,25 +3152,29 @@ def c5_setup():
 def plain_versions():
     """Route the render entry points' sweep (``render_prepared``'s op) and
     the light bake (``ops.lighting``'s batched tau sweeps and the lit
-    grid's assembly) to their plain PyTorch versions for CUDA tensors
-    too: the reference a frame or a step through the kernels is held
-    against. The train step takes ``impl="torch"`` itself."""
-    from tpuvr_torch.kernels import light_apply as klight_apply
+    grid's assembly, detached or not) to their plain PyTorch versions for
+    CUDA tensors too: the reference a frame or a step through the kernels
+    is held against. The train step takes ``impl="torch"`` itself."""
+    from tpuvr_torch.kernels import light_apply as kla
     from tpuvr_torch.kernels import lighting as klight
     from tpuvr_torch.ops import lighting as olight
     from tpuvr_torch.ops import render
 
-    saved = (render.resolve_impl, olight.tau_sweep_dirs,
-             olight.tau_sweep_adj_dirs, olight.light_apply)
+    names = ("tau_sweep_dirs", "tau_sweep_adj_dirs", "light_apply",
+             "light_apply_fwd", "shadow_cotangents", "mask_sum")
+    twins = (klight.tau_sweep_dirs_torch, klight.tau_sweep_adj_dirs_torch,
+             kla.light_apply_torch, kla.light_apply_torch,
+             kla.shadow_cotangents_torch, kla.mask_sum_torch)
+    saved = render.resolve_impl, [getattr(olight, n) for n in names]
     render.resolve_impl = lambda impl, t: "torch"
-    olight.tau_sweep_dirs = klight.tau_sweep_dirs_torch
-    olight.tau_sweep_adj_dirs = klight.tau_sweep_adj_dirs_torch
-    olight.light_apply = klight_apply.light_apply_torch
+    for name, twin in zip(names, twins):
+        setattr(olight, name, twin)
     try:
         yield
     finally:
-        (render.resolve_impl, olight.tau_sweep_dirs,
-         olight.tau_sweep_adj_dirs, olight.light_apply) = saved
+        render.resolve_impl = saved[0]
+        for name, fn in zip(names, saved[1]):
+            setattr(olight, name, fn)
 
 
 def f32_ulps(a, b):
@@ -3671,16 +3677,18 @@ def c5_shadow(st, grid, fog, key, stacked, g_targets, targets, run_dir):
     (a) The first step from the fog at eps 0 ('highest') through the
     kernels against the same step through the plain versions: loss 1e-6
     relative, gradient 1e-5 of max|grad|, as the detached step. The
-    kernels' step launches K1, K3, K2 and K4 once each (K2 and K4 one
-    cluster launch of size 16 over the 16 directions) and no K9/K10 (the
-    assembly takes the ATen passes: one ``light_apply_fallback``), with one
-    ``light_shadow`` bake and one adjoint; the plain step launches nothing.
-    (b) ``fit_grid`` for C5_STEPS steps with the tool's settings: K2 and K4
-    once a step, clusters of 16, 16 directions each, no K9/K10, one shadow
-    bake and adjoint a step; ms/step and peak. (c) K4 alone over the 16
-    directions of the 512^3 smoke sphere's density from seeded cotangents
-    against its plain version, and K2 and K4 in CUDA-event times in
-    interleaved rounds, with their bounds. Returns the numbers."""
+    kernels' step launches K1, K3, K2, K9, K11, K4 and K12 once each (K2
+    and K4 one cluster launch of size 16 over the 16 directions), no K10
+    and no fallback to the ATen passes, with one ``light_shadow`` bake and
+    one adjoint; the plain step launches nothing. (b) ``fit_grid`` for
+    C5_STEPS steps with the tool's settings: K2, K9, K11, K4 and K12 once a
+    step (K2 and K4 in clusters of 16, 16 directions each), no K10 and no
+    fallback, one shadow bake and adjoint a step; ms/step and peak. (c) K4
+    alone over the 16 directions of the 512^3 smoke sphere's density from
+    seeded cotangents against its plain version, and K2 and K4 in
+    CUDA-event times in interleaved rounds, with their bounds. (d) K11 and
+    K12 at 512^3 against their ATen passes (:func:`shadow_kernels_c5`).
+    Returns the numbers."""
     from tpuvr_torch.dist.workers import CaptureGrad
     from tpuvr_torch.kernels import lighting as klight
     from tpuvr_torch.ops import lighting as olight
@@ -3731,9 +3739,11 @@ def c5_shadow(st, grid, fog, key, stacked, g_targets, targets, run_dir):
           and k_counts["tau_sweep_dirs"] == n_dirs
           and k_counts["tau_adj_dirs"] == n_dirs
           and k_sizes == ({16: 1}, {16: 1})
-          and k_counts["light_apply_fwd"] == 0
+          and k_counts["light_apply_fwd"] == 1
           and k_counts["light_apply_bwd"] == 0
-          and k_counts["light_apply_fallback"] == 1
+          and k_counts["light_apply_shadow_bwd"] == 1
+          and k_counts["light_apply_mask"] == 1
+          and k_counts["light_apply_fallback"] == 0
           and k_counts["light_shadow"] == 1
           and k_counts["light_shadow_adjoint"] == 1
           and not any(v for k, v in p_counts.items() if k not in calls),
@@ -3776,9 +3786,11 @@ def c5_shadow(st, grid, fog, key, stacked, g_targets, targets, run_dir):
           "c5-shadow fit losses")
     check(counts["sweep_fwd"] == steps and counts["sweep_bwd"] == steps
           and counts["tau_sweep"] == steps and counts["tau_adj"] == steps
-          and counts["light_apply_fwd"] == 0
+          and counts["light_apply_fwd"] == steps
           and counts["light_apply_bwd"] == 0
-          and counts["light_apply_fallback"] == steps
+          and counts["light_apply_shadow_bwd"] == steps
+          and counts["light_apply_mask"] == steps
+          and counts["light_apply_fallback"] == 0
           and counts["light_shadow"] == steps
           and counts["light_shadow_adjoint"] == steps
           and by_size == {"tau_sweep": {16: steps}, "tau_adj": {16: steps},
@@ -3835,7 +3847,130 @@ def c5_shadow(st, grid, fog, key, stacked, g_targets, targets, run_dir):
     check(kerr <= 1e-5 * kscale and route == ({16: 1}, {16: n_dirs}),
           f"c5 K4: error {kerr:.3e}, launches {route}")
     torch.cuda.empty_cache()
+    out["k11_k12"] = shadow_kernels_c5(grid, lcfg)
+    torch.cuda.empty_cache()
     return out
+
+
+def shadow_kernels_c5(grid, lcfg):
+    """K11 and K12 (``kernels.light_apply.shadow_cotangents`` and
+    ``mask_sum``) at c5's size, the 512^3 grid and its 16 directions,
+    against their ATen passes (``shadow_cotangents_torch``,
+    ``mask_sum_torch``): K11's grid gradient and cotangents for a
+    contiguous cotangent G and for one in each sweep axis's layout, K12's
+    sum over the taus (standing in for K4's adjoints, which have their
+    layouts) with the z sweep's sigma and with the grid's channel 0, as
+    ulp distances (0: the same bits); CUDA-event times of both and of their
+    ATen passes, and the kernels' byte bounds. K11 writes over its taus, so
+    each check starts from a copy. Returns the numbers."""
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.ref.march import GRID_PERM
+
+    table = olight.direction_table(lcfg)
+    n = len(table)
+    axes = [row[0] for row in table]
+    scale = lcfg.sky_intensity / lcfg.n_samples
+    vox = grid[..., 0].numel()
+    out = dict(shape=f"{tuple(grid.shape)} smoke_sphere, {n} directions "
+                     f"over sweep axes {sorted(set(axes))}, highest",
+               k11_bytes_ms=(2 * n + 11) * 4 * vox / HBM_BYTES_PER_S * 1e3,
+               k12_bytes_ms=(n + 9) * 4 * vox / HBM_BYTES_PER_S * 1e3,
+               k11_ulps=0, k11_ms_by_layout={})
+    with torch.no_grad():
+        taus = olight._TauDirs.apply(grid[..., 0], table, "highest")
+    gen = torch.Generator(device=grid.device).manual_seed(11)
+    for layout in ("contiguous", 0, 1, 2):
+        if layout == "contiguous":
+            g = torch.randn(grid.shape, generator=gen, device=grid.device)
+        else:  # a view of a gradient in the sweep layout (S, 4, Ny, Nx)
+            p = [grid.shape[i] for i in GRID_PERM[layout][:3]]
+            g = torch.randn((p[0], 4, p[1], p[2]), generator=gen,
+                            device=grid.device).permute(0, 2, 3, 1).permute(
+                tuple(int(i) for i in np.argsort(GRID_PERM[layout])))
+        cots = [t.clone() for t in taus]
+        dgrid = kla.shadow_cotangents(g, grid, cots, axes, scale)
+        plain = [t.clone() for t in taus]
+        ref = kla.shadow_cotangents_torch(g, grid, plain, axes, scale)
+        out["k11_ulps"] = max(out["k11_ulps"], f32_ulps(dgrid, ref),
+                              *(f32_ulps(a, b) for a, b in zip(cots, plain)))
+        del ref, plain, dgrid
+        # Timed on the copy it has written over: the time does not depend
+        # on the values.
+        out["k11_ms_by_layout"][str(layout)] = cuda_ms(
+            lambda: kla.shadow_cotangents(g, grid, cots, axes, scale), 10)
+        if layout == 2:
+            out["k11_plain_ms"] = cuda_ms(
+                lambda: kla.shadow_cotangents_torch(g, grid, cots, axes,
+                                                    scale), 2)
+        del cots, g
+        torch.cuda.empty_cache()
+    out["k11_ms"] = max(out["k11_ms_by_layout"].values())
+    # K12 over the taus, which have the adjoints' layouts, into a seeded
+    # gradient.
+    out.update(k12_ulps=0, k12_ms_by_sigma={})
+    dgrid = torch.randn(grid.shape, generator=gen, device=grid.device)
+    z_sigma = grid[..., 0].contiguous()
+    for name, sigma in (("z_copy", z_sigma), ("grid_channel0", grid[..., 0])):
+        a, b = dgrid.clone(), dgrid.clone()
+        kla.mask_sum(a, taus, axes, sigma)
+        kla.mask_sum_torch(b, taus, axes, sigma)
+        out["k12_ulps"] = max(out["k12_ulps"], f32_ulps(a, b))
+        del b
+        out["k12_ms_by_sigma"][name] = cuda_ms(
+            lambda: kla.mask_sum(a, taus, axes, sigma), 10)
+        if name == "z_copy":
+            out["k12_plain_ms"] = cuda_ms(
+                lambda: kla.mask_sum_torch(a, taus, axes, sigma), 2)
+        del a
+    out["k12_ms"] = out["k12_ms_by_sigma"]["z_copy"]
+    del dgrid, taus, z_sigma
+    torch.cuda.empty_cache()
+    out["k11_share"] = out["k11_bytes_ms"] / out["k11_ms"]
+    out["k12_share"] = out["k12_bytes_ms"] / out["k12_ms"]
+    log(f"[c5-shadow] K11/K12 ({out['shape']}) against the ATen passes: "
+        f"K11 {out['k11_ulps']} ulps, {out['k11_ms']:.4f} ms at the slowest "
+        f"cotangent layout ({out['k11_ms_by_layout']}; plain "
+        f"{out['k11_plain_ms']:.2f}; bound {out['k11_bytes_ms']:.4f} ms, "
+        f"bytes: {100 * out['k11_share']:.1f} %), K12 {out['k12_ulps']} "
+        f"ulps, {out['k12_ms']:.4f} ms ({out['k12_ms_by_sigma']}; plain "
+        f"{out['k12_plain_ms']:.2f}; bound {out['k12_bytes_ms']:.4f} ms, "
+        f"bytes: {100 * out['k12_share']:.1f} %)")
+    check(out["k11_ulps"] == 0 and out["k12_ulps"] == 0,
+          f"c5 K11/K12 against the ATen passes: {out['k11_ulps']} and "
+          f"{out['k12_ulps']} ulps")
+    return out
+
+
+def shadow_kernel_entries(c5):
+    """The ``kernels`` summary's rows of K11 and K12, from
+    :func:`c5_shadow`."""
+    sh = c5["shadow"]
+    k = sh["k11_k12"]
+    rows = []
+    for name, key, by in (("light_apply_shadow_bwd", "k11",
+                           "ms_by_cotangent_layout"),
+                          ("light_apply_mask", "k12", "ms_by_sigma")):
+        rows.append({
+            "name": name, "route": "cuda", "config": "c5-shadow",
+            "source": "tpuvr_torch/csrc/light_apply.cu",
+            "replaces": "none: XLA fuses the light volume's transposes into "
+                        "loops around the tau sweeps' adjoint",
+            "launches": sh["fit"]["launches"][name],
+            "launches_by_path": {
+                "c5_shadow_step": sh["step_check"]["launches"][name],
+                "c5_shadow_fit": sh["fit"]["launches"][name]},
+            "max_ulps": k[f"{key}_ulps"],
+            "ms": k[f"{key}_ms"],
+            by: k[f"{key}_ms_by_layout" if key == "k11"
+                  else f"{key}_ms_by_sigma"],
+            "plain_ms": k[f"{key}_plain_ms"],
+            "bound_ms": k[f"{key}_bytes_ms"], "bound_by": "bytes",
+            "share_of_bound": k[f"{key}_share"],
+            "library_ms": None,
+            "shape": k["shape"],
+        })
+    return rows
 
 
 def tau_adj_c5_entry(c5):
@@ -4761,7 +4896,8 @@ def main(argv=None):
         c5, _ = c5_phase()
         log(json.dumps({"c5": c5}))
         log(json.dumps({"kernels": light_apply_entries(c5)
-                        + [tau_adj_c5_entry(c5)]}))
+                        + [tau_adj_c5_entry(c5)]
+                        + shadow_kernel_entries(c5)}))
         return finish(t_start)
     if opts.phase == "shell":
         shell, _ = shell_phase(dev)
@@ -5201,6 +5337,7 @@ def main(argv=None):
     kernels.append(ring_entry)
     kernels.extend(light_apply_entries(c5))
     kernels.append(tau_adj_c5_entry(c5))
+    kernels.extend(shadow_kernel_entries(c5))
     log(json.dumps({"frames": frames}))
     log(json.dumps({"train": train}))
     log(json.dumps({"dist": dist}))

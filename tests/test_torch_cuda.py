@@ -1476,8 +1476,8 @@ def test_light_apply_kernels_match_plain(card, shape, n_samples, up):
 def test_apply_lighting_takes_one_pass_on_the_card(card):
     """A detached bake of a float32 grid on the card launches K9 (and K10
     backward) and no fallback, with or without gradients, and equals the
-    ATen route; ``detach=False`` and 'persample' take the ATen passes,
-    each counted once."""
+    ATen route; so does ``detach=False`` for a grid that takes no gradient
+    (K9 alone); 'persample' takes the ATen passes, counted once."""
     from tpuvr_torch.config import LightingConfig
     from tpuvr_torch.kernels import light_apply as kla
     from tpuvr_torch.ops import lighting as olight
@@ -1493,12 +1493,14 @@ def test_apply_lighting_takes_one_pass_on_the_card(card):
     ref = kla.lit_grid_torch(grid, olight.light_volume(grid[..., 0], cfg,
                                                        device=card))
     assert _ulps(lit.detach(), ref) == 0 and _ulps(lit_ng, ref) == 0
+    before = kla.launches.copy()
+    lit_nd = olight.apply_lighting(grid, cfg, detach=False)
+    assert dict(kla.launches - before) == {"fwd": 1}
+    assert _ulps(lit_nd, ref) == 0
     exact = LightingConfig(mode="persample", n_samples=2, secondary_dt=2.0)
-    for args, kw in (((grid, cfg), dict(detach=False)),
-                     ((grid[:6, :6, :6].contiguous(), exact), {})):
-        before = kla.launches.copy()
-        olight.apply_lighting(*args, **kw)
-        assert dict(kla.launches - before) == {"fallback": 1}
+    before = kla.launches.copy()
+    olight.apply_lighting(grid[:6, :6, :6].contiguous(), exact)
+    assert dict(kla.launches - before) == {"fallback": 1}
 
 
 @pytest.mark.parametrize("layout", ["strided", "offset"])
@@ -1573,6 +1575,173 @@ def test_lit_fit_launches_one_pass_a_step_and_keeps_its_bits(
     assert _ulps(params[0], params[1]) == 0
 
 
+def _sweep_view_cotangent(shape, layout, gen, card):
+    """A (Z, Y, X, 4) view of a seeded gradient in sweep axis ``layout``'s
+    (S, 4, Ny, Nx) layout, as the sweep's backward hands it back."""
+    from tpuvr_torch.ref.march import GRID_PERM
+
+    p = [shape[i] for i in GRID_PERM[layout][:3]]
+    return torch.randn((p[0], 4, p[1], p[2]), generator=gen,
+                       device=card).permute(0, 2, 3, 1).permute(
+        tuple(int(i) for i in np.argsort(GRID_PERM[layout])))
+
+
+@pytest.mark.parametrize("shape", [(20, 33, 47), (17, 40, 9)])
+@pytest.mark.parametrize("n_samples", [4, 16, 64, 100])
+@pytest.mark.parametrize("up", LIGHT_UPS)
+def test_shadow_kernels_match_plain(card, shape, n_samples, up):
+    """K11's grid gradient and the cotangents it writes over the taus, for
+    the lit grid's cotangent as each sweep layout hands it back (and a
+    contiguous one), and K12's masked sum with the z sweep's sigma and with
+    the grid's channel 0, equal their ATen passes bit for bit, one launch
+    each a run of 64 directions (100: the sums carried from one launch to
+    the next, K12's from the last run to the first)."""
+    from tpuvr_torch.kernels import light_apply as kla
+
+    grid, cfg, axes, taus = _lit_case(card, shape, n_samples, up)
+    scale = cfg.sky_intensity / cfg.n_samples
+    gen = torch.Generator(device=card).manual_seed(3)
+    for layout in ("contiguous", 0, 1, 2):
+        g = (torch.randn(grid.shape, generator=gen, device=card)
+             if layout == "contiguous"
+             else _sweep_view_cotangent(shape, layout, gen, card))
+        cots = [t.clone() for t in taus]
+        plain = [t.clone() for t in taus]
+        runs = -(-n_samples // kla.MAX_DIRS)
+        before = kla.launches.copy()
+        dgrid = kla.shadow_cotangents(g, grid, cots, axes, scale)
+        assert dict(kla.launches - before) == {"shadow_bwd": runs}
+        assert _ulps(dgrid, kla.shadow_cotangents_torch(
+            g, grid, plain, axes, scale)) == 0
+        assert max(_ulps(a, b) for a, b in zip(cots, plain)) == 0
+        for sigma in (grid[..., 0].contiguous(), grid[..., 0]):
+            a, b = dgrid.clone(), dgrid.clone()
+            before = kla.launches.copy()
+            kla.mask_sum(a, cots, axes, sigma)
+            assert dict(kla.launches - before) == {"mask": runs}
+            kla.mask_sum_torch(b, cots, axes, sigma)
+            assert _ulps(a, b) == 0
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("layout", ["contiguous", 0, 1, 2, "strided"])
+def test_shadow_route_matches_the_aten_route(card, n, layout):
+    """An undetached 16-direction bake of a smoke sphere (density partly
+    below 0) through the shadow route (K2, K9; K11, K4, K12) gives the lit
+    grid and the grid gradient of the ATen route (``light_volume``, then
+    ``lit_grid_torch``) bit for bit, for the lit grid's cotangent as each
+    sweep layout hands it back, a contiguous one, and a grid that is a
+    permuted view (copied first; its gradient reaches the base tensor):
+    one K9, K11 and K12 launch, no K10, no fallback, 16 adjoint directions
+    and one ``light_shadow`` bake and adjoint."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.utils import trace
+
+    base = smoke_sphere(n, device=card).clone()
+    base[..., 0] -= 0.05
+    cfg = LightingConfig(mode="lightvolume", n_samples=16, detach=False)
+    gen = torch.Generator(device=card).manual_seed(4)
+    cot = (_sweep_view_cotangent(base.shape[:3], 1, gen, card)
+           if layout == "strided"
+           else torch.randn(base.shape, generator=gen, device=card)
+           if layout == "contiguous"
+           else _sweep_view_cotangent(base.shape[:3], layout, gen, card))
+    outs = []
+    for aten in (False, True):
+        if layout == "strided":
+            leaf = base.permute(2, 1, 0, 3).contiguous().requires_grad_(True)
+            g = leaf.permute(2, 1, 0, 3)
+        else:
+            leaf = base.clone().requires_grad_(True)
+            g = leaf
+        before = trace.launch_counts()
+        lit = (kla.lit_grid_torch(g, olight.light_volume(g[..., 0], cfg,
+                                                         device=card))
+               if aten else olight.apply_lighting(g, cfg))
+        lit.backward(cot)
+        torch.cuda.synchronize()
+        counts = trace.launch_counts() - before
+        if not aten:
+            assert {k: v for k, v in counts.items()
+                    if k.startswith("light_")} == {
+                "light_apply_fwd": 1, "light_apply_shadow_bwd": 1,
+                "light_apply_mask": 1, "light_shadow": 1,
+                "light_shadow_adjoint": 1}
+            assert counts["tau_adj_dirs"] == 16
+        outs.append((lit.detach(), leaf.grad))
+    assert _ulps(outs[0][0], outs[1][0]) == 0
+    assert _ulps(outs[0][1], outs[1][1]) == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", 0])
+def test_shadow_route_takes_more_than_64_directions(card, layout):
+    """An undetached 100-direction bake at 48^3 takes the shadow route in
+    two launches of K9, K11 and K12 (the sums carried between them), 100
+    adjoint directions and no fallback, with the ATen route's lit grid and
+    grid gradient bit for bit."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.utils import trace
+
+    base = smoke_sphere(48, device=card).clone()
+    base[..., 0] -= 0.05
+    cfg = LightingConfig(mode="lightvolume", n_samples=100,
+                         up=(0.3, -0.5, 0.8), detach=False)
+    gen = torch.Generator(device=card).manual_seed(5)
+    cot = (torch.randn(base.shape, generator=gen, device=card)
+           if layout == "contiguous"
+           else _sweep_view_cotangent(base.shape[:3], layout, gen, card))
+    outs = []
+    for aten in (False, True):
+        leaf = base.clone().requires_grad_(True)
+        before = trace.launch_counts()
+        lit = (kla.lit_grid_torch(leaf, olight.light_volume(
+            leaf[..., 0], cfg, device=card)) if aten
+            else olight.apply_lighting(leaf, cfg))
+        lit.backward(cot)
+        torch.cuda.synchronize()
+        counts = trace.launch_counts() - before
+        if not aten:
+            assert {k: v for k, v in counts.items()
+                    if k.startswith("light_")} == {
+                "light_apply_fwd": 2, "light_apply_shadow_bwd": 2,
+                "light_apply_mask": 2, "light_shadow": 1,
+                "light_shadow_adjoint": 1}
+            assert counts["tau_adj_dirs"] == 100
+        outs.append((lit.detach(), leaf.grad))
+    assert _ulps(outs[0][0], outs[1][0]) == 0
+    assert _ulps(outs[0][1], outs[1][1]) == 0
+
+
+def test_undetached_light_bake_without_a_gradient_launches_k9_alone(card):
+    """An undetached 16-direction bake at 64^3 under ``torch.no_grad`` (as
+    ``render_all_views`` and ``prepare_grid`` make it) of a grid that takes
+    a gradient is the detached bake's function: one K9, no K10, K11, K12,
+    K4 or fallback and no shadow bake, with the ATen route's lit grid bit
+    for bit."""
+    from tpuvr_torch.config import LightingConfig
+    from tpuvr_torch.kernels import light_apply as kla
+    from tpuvr_torch.ops import lighting as olight
+    from tpuvr_torch.utils import trace
+
+    grid = smoke_sphere(64, device=card).clone().requires_grad_(True)
+    cfg = LightingConfig(mode="lightvolume", n_samples=16, detach=False)
+    with torch.no_grad():
+        before = trace.launch_counts()
+        lit = olight.apply_lighting(grid, cfg)
+        torch.cuda.synchronize()
+        counts = trace.launch_counts() - before
+        ref = kla.lit_grid_torch(grid, olight.light_volume(
+            grid[..., 0], cfg, device=card))
+    assert {k: v for k, v in counts.items()
+            if k.startswith("light_")} == {"light_apply_fwd": 1}
+    assert counts["tau_adj_dirs"] == 0 and counts["tau_sweep_dirs"] == 16
+    assert not lit.requires_grad and _ulps(lit, ref) == 0
+
+
 @pytest.mark.parametrize("density_softplus", [False, True],
                          ids=["raw", "softplus"])
 def test_undetached_lit_fit_matches_the_shadow_reference(
@@ -1584,7 +1753,8 @@ def test_undetached_lit_fit_matches_the_shadow_reference(
     orders than the reference's dense matmuls) against
     ``vrbench/ref/shadow.py`` on the card, TF32 off; one ``light_shadow``
     bake, one ``light_shadow_adjoint`` and 16 adjoint directions a step,
-    the span ``tpuvr.light.adjoint`` once a step, no K9/K10."""
+    the span ``tpuvr.light.adjoint`` once a step, one K9, K11 and K12 a
+    step, no K10 and no fallback."""
     from tpuvr_torch.utils import trace
     from vrbench import fitjob
     from vrbench.ref import shadow as RS
@@ -1624,7 +1794,10 @@ def test_undetached_lit_fit_matches_the_shadow_reference(
     assert counts["light_shadow"] == steps
     assert counts["light_shadow_adjoint"] == steps
     assert counts["tau_adj_dirs"] == 16 * steps
-    assert counts["light_apply_fwd"] == counts["light_apply_bwd"] == 0
+    assert counts["light_apply_fwd"] == steps
+    assert counts["light_apply_shadow_bwd"] == steps
+    assert counts["light_apply_mask"] == steps
+    assert counts["light_apply_bwd"] == counts["light_apply_fallback"] == 0
     assert snap["totals"]["tpuvr.light.adjoint"]["count"] == steps
     pick = RT.draws(inp.views, cfg, 1, inp.draw.fit_seed)[0]
     loss, g = RS.loss_and_grad(p0, inp.views, inp.targets, pick, cfg, 64)

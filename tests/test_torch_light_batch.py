@@ -7,7 +7,12 @@ numpy twin of the cluster kernel's map of a plane over its CTAs (every
 cell kept once, every tap read from the CTA that keeps it), and the lit
 grid's one-pass assembly (``kernels.light_apply``): which calls take it,
 the fallback's count, its twin against ``apply_lighting`` and its
-wrapper's checks of the taus' layouts."""
+wrapper's checks of the taus' layouts; and the shadow route (the
+undetached bake as one autograd function): its backward through the twins
+of K11 and K12 against autograd of the ATen passes, which calls take it,
+and its wrappers' checks."""
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -315,9 +320,10 @@ def test_one_pass_takes_a_detached_float32_bake_on_the_card(case,
                                                            monkeypatch):
     """``apply_lighting`` takes K9/K10 for a detached 'lightvolume' bake of
     a float32 grid on the card, in any layout and with any number of
-    directions, and the ATen passes, counted once, for every other grid and
-    configuration. The grids here say they lie on the card; the kernels'
-    place is taken by their twin."""
+    directions, and for an undetached one whose grid takes no gradient
+    (the same function), and the ATen passes, counted once, for every
+    other grid and configuration. The grids here say they lie on the card;
+    the kernels' place is taken by their twin."""
     grid, cfg, detach = _route_case(case)
     takes = tkla.takes
     assert takes(grid if case == "cpu" else _OnCard(grid)) == (
@@ -333,7 +339,7 @@ def test_one_pass_takes_a_detached_float32_bake_on_the_card(case,
     monkeypatch.setattr(tlight, "light_apply", kernels)
     before = tkla.launches.copy()
     lit = tlight.apply_lighting(grid, cfg, detach=detach)
-    one_pass = case in ("card", "many", "strided", "offset")
+    one_pass = case in ("card", "no_detach", "many", "strided", "offset")
     assert len(calls) == one_pass
     assert dict(tkla.launches - before) == ({} if one_pass
                                             else {"fallback": 1})
@@ -363,7 +369,8 @@ def test_each_aten_route_counts_one_fallback(case):
 
 
 def test_light_apply_counters_in_launch_counts():
-    assert {"light_apply_fwd", "light_apply_bwd",
+    assert {"light_apply_fwd", "light_apply_bwd", "light_apply_shadow_bwd",
+            "light_apply_mask",
             "light_apply_fallback"} <= set(trace.launch_counts())
 
 
@@ -447,3 +454,199 @@ def test_light_apply_refuses_a_grid_off_the_card():
         assert not tkla.takes(g)
     with pytest.raises(ValueError, match="on the card"):
         tkla.light_apply(grid, taus, axes, 0.25)
+
+
+# The shadow route (``ops.lighting._Shadow``): K2 and K9 forward, K11, K4
+# and K12 backward on the card. Here the kernels' places are taken by their
+# twins, which hold the route to autograd of the ATen passes.
+
+# (n_samples, up): one direction along each sweep axis (x, y, z: flipped),
+# then tables over all three.
+SHADOW_CASES = [(1, (0.0, 0.0, 1.0)), (1, (-0.6, 0.7, 0.1)),
+                (1, (1.0, 0.0, 0.0)), (4, (0.3, -0.5, 0.8)),
+                (16, (0.0, 0.0, 1.0)), (16, (-0.9, 0.1, 0.3))]
+
+
+@pytest.fixture
+def shadow_twins(monkeypatch):
+    """The shadow route's kernels (K9, K11, K12), and the detached route's
+    (K9 and K10), replaced by their twins; K2 and K4 take theirs for CPU
+    tensors."""
+    for name, twin in (("light_apply", tkla.light_apply_torch),
+                       ("light_apply_fwd", tkla.light_apply_torch),
+                       ("shadow_cotangents", tkla.shadow_cotangents_torch),
+                       ("mask_sum", tkla.mask_sum_torch)):
+        monkeypatch.setattr(tlight, name, twin)
+
+
+@pytest.mark.parametrize("softplus", [False, True], ids=["raw", "softplus"])
+@pytest.mark.parametrize("n_samples,up", SHADOW_CASES)
+def test_shadow_twins_bits_equal_autograd(shadow_twins, n_samples, up,
+                                          softplus):
+    """The shadow route through the twins of K9, K11 and K12 gives the lit
+    grid, and the gradient of the parameters (raw, with densities below 0
+    that the relu masks cut, or through softplus), of autograd through
+    ``_TauDirs``, ``light_value_torch`` and ``lit_grid_torch`` bit for bit,
+    with one ``light_shadow_adjoint``."""
+    from tpuvr_torch.train.fit import params_to_grid
+
+    rng = np.random.default_rng(11)
+    raw = rng.uniform(0.0, 1.0, (7, 9, 11, 4)).astype(np.float32)
+    raw[..., 0] = raw[..., 0] * 4.0 - 3.0 if softplus else raw[..., 0] - 0.3
+    assert softplus or (raw[..., 0] < 0).any()
+    wts = torch.as_tensor(rng.normal(size=raw.shape).astype(np.float32))
+    cfg = _cfg(n_samples, up, detach=False)
+    table = tlight.direction_table(cfg)
+    axes = [row[0] for row in table]
+    assert len(set(axes)) == (1 if n_samples == 1 else 3)
+    scale = cfg.sky_intensity / cfg.n_samples
+    outs = []
+    for shadow_route in (True, False):
+        p = torch.as_tensor(raw).clone().requires_grad_(True)
+        grid = params_to_grid(p, softplus)
+        before = tlight.shadow.copy()
+        if shadow_route:
+            lit = tlight._Shadow.apply(grid, table, "highest", scale)
+        else:
+            taus = tlight._TauDirs.apply(grid[..., 0], table, "highest")
+            lit = tkla.lit_grid_torch(
+                grid, tkla.light_value_torch(taus, axes, scale))
+        (lit * wts).sum().backward()
+        assert dict(tlight.shadow - before) == {"adjoint": 1}
+        outs.append((lit.detach(), p.grad))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("case", ["card", "strided", "offset", "cpu",
+                                  "persample", "many", "float64",
+                                  "no_grad"])
+def test_shadow_route_takes_an_undetached_bake_with_a_gradient(
+        case, monkeypatch, shadow_twins):
+    """``apply_lighting(detach=False)`` takes the shadow route (no
+    fallback) for a float32 grid on the card that takes a gradient, in any
+    layout (a strided or misaligned grid is copied first, and its gradient
+    reaches the base tensor) and with more than MAX_DIRS directions, with
+    the ATen route's lit grid and gradient bit for bit; a call without a
+    gradient takes K9 (``light_apply``, no shadow bake and no fallback),
+    with the ATen route's lit grid; the CPU, 'persample' and float64 take
+    the ATen passes, counted once as ``light_apply_fallback``. The grids
+    here say they lie on the card; the kernels' places are taken by their
+    twins."""
+    grid, cfg, _ = _route_case("card" if case == "no_grad" else case)
+    takes = tkla.takes
+    monkeypatch.setattr(tkla, "takes", lambda g: takes(
+        g if case == "cpu" else _OnCard(g)))
+    wts = torch.as_tensor(np.random.default_rng(12).normal(
+        size=grid.shape).astype(np.float32)).to(grid.dtype)
+    shadow_route = case in ("card", "strided", "offset", "many")
+    on_card = shadow_route or case == "no_grad"
+    calls = []
+    monkeypatch.setattr(tlight, "light_apply", lambda *args: calls.append(
+        args[0]) or tkla.light_apply_torch(*args))
+    outs = []
+    for aten in (False, True) if on_card else (False,):
+        if case == "strided":
+            leaf = grid.transpose(0, 1).contiguous().requires_grad_(True)
+            g = leaf.transpose(0, 1)
+        elif case == "offset":
+            leaf = torch.cat([grid.new_zeros(1), grid.reshape(-1)])
+            leaf.requires_grad_(True)
+            g = leaf[1:].view(grid.shape)
+        else:
+            leaf = grid.clone().requires_grad_(True)
+            g = leaf
+        assert (case in ("strided", "offset")) == (
+            not g.is_contiguous() or g.data_ptr() % 16 != 0)
+        before = trace.launch_counts()
+        grad = contextlib.nullcontext() if case != "no_grad" else (
+            torch.no_grad())
+        with grad:
+            lit = (tkla.lit_grid_torch(g, tlight.light_volume(
+                g[..., 0], cfg, device="cpu")) if aten
+                else tlight.apply_lighting(g, cfg, detach=False))
+        if case != "no_grad":
+            (lit * wts).sum().backward()
+        counts = trace.launch_counts() - before
+        if not aten:
+            assert counts["light_apply_fallback"] == (not on_card)
+            shadows = case not in ("persample", "no_grad")
+            assert counts["light_shadow"] == shadows
+            assert counts["light_shadow_adjoint"] == shadows
+            assert len(calls) == (case == "no_grad")
+        outs.append((lit.detach(), leaf.grad))
+    if on_card:
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert (outs[0][1] is outs[1][1] is None if case == "no_grad"
+                else torch.equal(outs[0][1], outs[1][1]))
+
+
+def test_shadow_route_backward_runs_once(shadow_twins):
+    """The shadow route's backward writes the cotangents over its saved
+    taus, so a second backward through a kept graph raises."""
+    grid = torch.as_tensor(_grid("float32")).requires_grad_(True)
+    cfg = _cfg(4, detach=False)
+    lit = tlight._Shadow.apply(grid, tlight.direction_table(cfg), "highest",
+                               cfg.sky_intensity / cfg.n_samples)
+    loss = lit.square().sum()
+    loss.backward(retain_graph=True)
+    with pytest.raises(RuntimeError, match="runs once"):
+        loss.backward()
+
+
+@pytest.mark.parametrize("bad", ["count", "tau_layout", "cotangent",
+                                 "sigma"])
+def test_shadow_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    """K11's and K12's wrappers check before a launch: one field a
+    direction, each in its sweep axis's layout, a (Z, Y, X, 4) float32
+    cotangent for K11 and a (Z, Y, X) float32 sigma for K12. More than 64
+    directions pass: they take one launch a run of 64."""
+    grid = torch.rand(4, 5, 6, 4)
+    table = tlight.direction_table(_cfg(16, (0.3, -0.5, 0.8)))
+    axes = [row[0] for row in table]
+    taus = list(tlight._TauDirs.apply(grid[..., 0], table, "highest"))
+    g, sigma = torch.rand(grid.shape), grid[..., 0]
+    tkla._check(grid, taus * 5, axes * 5)
+    match = {"count": "one tau a direction", "tau_layout": "sweep axis",
+             "cotangent": "cotangent must be", "sigma": "sigma must be"}[bad]
+    if bad == "count":
+        taus = taus[:-1]
+    elif bad == "tau_layout":
+        i = axes.index(0)
+        taus[i] = taus[i].permute(tkla.grid_order(0)).contiguous()
+    elif bad == "cotangent":
+        g = g[..., :3]
+    else:
+        sigma = sigma[:-1]
+    if bad != "sigma":
+        with pytest.raises(ValueError, match=match):
+            tkla.shadow_cotangents(g, grid, taus, axes, 0.25)
+    if bad != "cotangent":
+        with pytest.raises(ValueError, match=match):
+            tkla.mask_sum(grid.clone(), taus, axes, sigma)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "reverse"])
+@pytest.mark.parametrize("n", [1, 64, 65, 130])
+def test_runs_split_a_table_into_launches_with_carries(n, reverse):
+    """``_runs`` gives one launch a run of MAX_DIRS directions, in table
+    order or (K12's) from the last run to the first, each with its fields'
+    pointers, axes and count, and says which launches start from a carry
+    (a run went before) and which leave one (a run comes after); a carry
+    buffer exists exactly where there is more than one launch."""
+    fields = [torch.zeros(1) for _ in range(n)]
+    axes = [i % 3 for i in range(n)]
+    runs = list(tkla._runs(fields, axes, reverse=reverse))
+    starts = list(range(0, n, tkla.MAX_DIRS))
+    if reverse:
+        starts.reverse()
+    assert len(runs) == len(starts) == -(-n // tkla.MAX_DIRS)
+    for i, ((ptrs, run_axes, k), after, more) in enumerate(runs):
+        d0 = starts[i]
+        assert k == len(fields[d0:d0 + tkla.MAX_DIRS])
+        assert list(ptrs) == [f.data_ptr() for f in fields[d0:d0 + k]]
+        assert list(run_axes) == axes[d0:d0 + k]
+        assert (after, more) == (i > 0, i + 1 < len(runs))
+    carry = tkla._carry(torch.zeros(2, 3, 4, 4), n)
+    assert (carry is None) == (len(runs) == 1)
+    assert carry is None or carry.shape == (2, 3, 4)

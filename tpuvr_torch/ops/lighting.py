@@ -9,13 +9,16 @@ of ``tpuvr_torch.kernels.lighting.tau_sweep_dirs`` (one launch on the
 card). Lit rendering multiplies L into the emission channels, so the render
 sweep is unchanged. With ``detach`` (the config's default) no gradient
 flows through L, and on the card the sum and the multiply are one kernel
-each way (``tpuvr_torch.kernels.light_apply``); ``detach=False``
-differentiates the shadows too, through the tau sweeps' adjoint
-(``tau_sweep_adj_dirs``, again one launch). Such a bake, one whose
-density takes a gradient, counts as ``light_shadow`` in
-``utils.trace.launch_counts()``, and its backward (the adjoint launch, the
-relu masks and the directions' sum) as ``light_shadow_adjoint``, under the
-span ``tpuvr.light.adjoint``; a detached bake runs none of it.
+each way (``tpuvr_torch.kernels.light_apply``, K9 and K10);
+``detach=False`` differentiates the shadows too, through the tau sweeps'
+adjoint (``tau_sweep_adj_dirs``, K4, again one launch). On the card that
+route is one autograd function (:func:`apply_lighting`): K2 and K9
+forward, and backward K11 (the lit grid's and the taus' cotangents), K4
+and K12 (the relu masks and the directions' sum), with no ATen pass
+between them. Such a bake, one whose density takes a gradient, counts as
+``light_shadow`` in ``utils.trace.launch_counts()``, and its backward as
+``light_shadow_adjoint``, under the span ``tpuvr.light.adjoint``; a
+detached bake runs none of it.
 
 ``mode='persample'`` builds L exactly instead (:func:`light_volume_exact`):
 true secondary marches from every voxel centre through the trilinear
@@ -30,6 +33,7 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from tpuvr_torch.config import LightingConfig
 from tpuvr_torch.device import resolve_device
@@ -37,8 +41,11 @@ from tpuvr_torch.kernels import light_apply as klight_apply
 from tpuvr_torch.kernels.light_apply import (
     grid_order,
     light_apply,
+    light_apply_fwd,
     light_value_torch,
     lit_grid_torch,
+    mask_sum,
+    shadow_cotangents,
 )
 from tpuvr_torch.kernels.lighting import (
     tau_sweep,
@@ -181,6 +188,57 @@ class _TauDirs(torch.autograd.Function):
         return dsig, None, None
 
 
+class _Shadow(torch.autograd.Function):
+    """The lit grid of a differentiable 'lightvolume' bake on the card, in
+    one function. Forward: the sigma layout copies that the sweeps take, K2
+    (``tau_sweep_dirs``) and K9 (``light_apply_fwd``); it keeps the taus
+    (one a direction), the grid and one sigma for the masks (the z sweep's
+    copy, else the grid's channel 0), and no exponential, L or sum.
+    Backward: K11 (``shadow_cotangents``: the grid's gradient, and each
+    tau's cotangent written over the tau), K4 (``tau_sweep_adj_dirs``) and
+    K12 (``mask_sum``: the relu masks and the directions' sum, into the
+    density channel), counted as ``light_shadow_adjoint`` under the span
+    ``tpuvr.light.adjoint``. The same bits as the ATen route
+    (:func:`light_volume`, then ``lit_grid_torch``). The backward writes
+    over its saved taus, so it runs once."""
+
+    @staticmethod
+    def forward(ctx, grid, table, precision, scale):
+        axes = [row[0] for row in table]
+        sigma = grid[..., 0]
+        fields = {a: sigma.permute(GRID_PERM[a][:3]).contiguous()
+                  for a in sorted(set(axes))}
+        taus = tau_sweep_dirs([(fields[a], flip, d_y, d_x, dt)
+                               for a, flip, d_y, d_x, dt in table], precision)
+        mask = fields.get(2, sigma)
+        del fields
+        lit = light_apply_fwd(grid, taus, axes, scale)
+        ctx.save_for_backward(grid, mask, *taus)
+        ctx.table, ctx.precision, ctx.scale = table, precision, scale
+        ctx.spent = False
+        return lit
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if ctx.spent:
+            raise RuntimeError("the shadow route's backward writes over its "
+                               "saved taus and runs once")
+        ctx.spent = True
+        shadow["adjoint"] += 1
+        with trace.span("tpuvr.light.adjoint"):
+            grid, mask, *cots = ctx.saved_tensors
+            axes = [row[0] for row in ctx.table]
+            dgrid = shadow_cotangents(g, grid, cots, axes, ctx.scale)
+            adjs = tau_sweep_adj_dirs(
+                [(c, flip, d_y, d_x, dt)
+                 for c, (_, flip, d_y, d_x, dt) in zip(cots, ctx.table)],
+                ctx.precision)
+            del cots
+            mask_sum(dgrid, adjs, axes, mask)
+        return dgrid, None, None, None
+
+
 def light_volume(sigma, cfg: LightingConfig = LightingConfig(),
                  precision: str = "highest", device=None):
     """Sky-light volume L (Z, Y, X): mean hemisphere transmittance.
@@ -304,17 +362,29 @@ def apply_lighting(grid, cfg: LightingConfig = LightingConfig(),
     exponentials, scales and multiplies the emission; K10 is its
     backward), which frees each tau once read and makes no sum or
     exponential: N + 3 volumes of sigma's size at the peak (the taus and a
-    copy of sigma for each sweep axis), then the lit grid. Every other
-    call (the CPU, ``detach=False``, 'persample', another dtype) takes the
-    ATen passes (:func:`light_volume`, then ``lit_grid_torch``), counted
-    as ``light_apply_fallback``; both give the same bits."""
+    copy of sigma for each sweep axis), then the lit grid. So does an
+    undetached one with no gradient to take (under ``torch.no_grad``, or
+    a grid that takes none), which is the same function. An undetached one
+    whose grid takes a gradient runs as one function (``_Shadow``): K2 and
+    K9 forward, keeping the taus; backward K11 writes the grid's gradient
+    and each tau's cotangent over the tau, K4 sweeps the cotangents back
+    and K12 adds their masked sum into the density channel (one launch of
+    each a run of ``kernels.light_apply.MAX_DIRS`` directions). Every other
+    call (the CPU, 'persample', another dtype) takes the ATen passes
+    (:func:`light_volume`, then ``lit_grid_torch``), counted as
+    ``light_apply_fallback``; each route gives the same bits."""
     if detach is None:
         detach = cfg.detach
-    if cfg.mode == "lightvolume" and detach and klight_apply.takes(grid):
+    if cfg.mode == "lightvolume" and klight_apply.takes(grid):
         table = direction_table(cfg)
-        taus = _TauDirs.apply(grid[..., 0].detach(), table, precision)
-        return light_apply(grid, taus, [axis for axis, *_ in table],
-                           cfg.sky_intensity / cfg.n_samples)
+        scale = cfg.sky_intensity / cfg.n_samples
+        if detach or not (torch.is_grad_enabled() and grid.requires_grad):
+            taus = _TauDirs.apply(grid[..., 0].detach(), table, precision)
+            return light_apply(grid, taus, [axis for axis, *_ in table],
+                               scale)
+        shadow["bake"] += 1
+        return _Shadow.apply(klight_apply.aligned(grid), table, precision,
+                             scale)
     klight_apply.launches["fallback"] += 1
     sigma = grid[..., 0].detach() if detach else grid[..., 0]
     if cfg.mode == "lightvolume":

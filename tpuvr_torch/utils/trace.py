@@ -70,7 +70,8 @@ def launch_counts():
     0 counts the plane loop's planes) and the directions they swept
     ("tau_sweep_dirs", "tau_adj_dirs"), the row warp's launches
     ("warp_rows_fwd", "warp_rows_bwd"), the lit grid's assembly
-    ("light_apply_fwd", "light_apply_bwd", "light_apply_fallback"), the
+    ("light_apply_fwd", "light_apply_bwd", "light_apply_shadow_bwd",
+    "light_apply_mask", "light_apply_fallback"), the
     differentiable light bakes and their backward passes ("light_shadow",
     "light_shadow_adjoint"), the ring backward's calls that
     launched K6 ("sweep_bwd_ring"), and each collective
